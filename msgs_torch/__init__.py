@@ -5,11 +5,13 @@ Same layout and function names as the JAX package `msgs`, which stays the
 reference this package is held against (tests/test_torch_*.py):
 
   core/     camera / SH / transform math on tensors
-  kernels/  rasterizer: preprocess, binning, prefix-scan and tile-compositor
-            kernels (CUDA, built at first use) beside their plain versions
-  model/    Gaussian state (fields and activations)
+  kernels/  differentiable rasterizer: preprocess, binning, the gather VJP,
+            prefix-scan and tile-compositor (forward and backward) kernels
+            (CUDA, built at first use) beside their plain versions
+  model/    Gaussian state (fields, activations, per-step statistics)
+  eval/     L1, SSIM, PSNR
   data/     PLY I/O (numpy)
-  train/    render entry points and PLY snapshots
+  train/    train_step, per-group Adam, render entry points, PLY snapshots
 
 Entry points take `device=None`, meaning the CUDA device; they raise when no
 GPU is present and run on the CPU only when the caller passes

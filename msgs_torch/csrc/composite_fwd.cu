@@ -37,20 +37,11 @@
 // broadcasts; the per-pixel state stays in registers. Staging several
 // sub-blocks per barrier (cp.async / TMA) and packing several tiles per CTA
 // are later work.
-#include <cuda_runtime.h>
+#include "composite_common.cuh"
 
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kPix = kTile * kTile;   // 256 threads, one per pixel
-constexpr int kSub = 32;              // entries per sub-block
-constexpr int kFeat = 12;             // payload columns
-constexpr int kOut = 8;               // output channels
-
-// Payload columns (composite.py F_*) and output rows (O_*).
-constexpr int F_MX = 0, F_MY = 1, F_CXX = 2, F_CXY = 3, F_CYY = 4, F_OP = 5;
-constexpr int F_R = 6;   // r g b depth psize = F_R .. F_R+4
-constexpr int O_T = 5, O_DONE = 6;
+using namespace msgs_composite;
 
 __global__ void __launch_bounds__(kPix)
 composite_fwd_kernel(const float* __restrict__ payload,
@@ -59,10 +50,7 @@ composite_fwd_kernel(const float* __restrict__ payload,
                      float* __restrict__ out,
                      int tiles_x, int width, int height) {
   __shared__ float sp[kSub * kFeat];
-  // The double constants rounded to float, as torch rounds a Python scalar.
-  const float kAlphaMin = (float)(1.0 / 255.0);
-  const float kAlphaMax = (float)0.99;
-  const float kTEps = (float)1e-4;
+  const float kTEps = t_eps();
 
   const int tile = blockIdx.x;
   const int p = threadIdx.x;
@@ -86,27 +74,11 @@ composite_fwd_kernel(const float* __restrict__ payload,
     float al[kSub], cu[kSub];
 #pragma unroll
     for (int i = 0; i < kSub; ++i) {
-      const float* e = sp + i * kFeat;
-      const float mxl = e[F_MX] - ox;
-      const float myl = e[F_MY] - oy;
-      const float dx = pxl - mxl;
-      const float dy = pyl - myl;
-      const float power =
-          -0.5f * (e[F_CXX] * dx * dx + e[F_CYY] * dy * dy) -
-          e[F_CXY] * dx * dy;
-      const float araw = e[F_OP] * expf(power);
-      const bool m = (araw >= kAlphaMin) && (power <= 0.0f);
-      const float a = m ? fminf(araw, kAlphaMax) : 0.0f;
-      al[i] = a;
-      cu[i] = 1.0f - a;
+      float araw;
+      al[i] = splat_alpha(sp + i * kFeat, ox, oy, pxl, pyl, araw);
+      cu[i] = 1.0f - al[i];
     }
-    // Inclusive prefix product, 5 Hillis-Steele rounds; descending i reads
-    // the previous round's cu[i-k].
-#pragma unroll
-    for (int k2 = 1; k2 < kSub; k2 <<= 1) {
-#pragma unroll
-      for (int i = kSub - 1; i >= k2; --i) cu[i] = cu[i] * cu[i - k2];
-    }
+    hs_prefix_product(cu);
 
     const float t_in = T;
     const float not_done = 1.0f - done;

@@ -31,7 +31,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v"]
 
 # name → number of launches of that kernel in this process
-launch_counts = {"scan_f32": 0, "scan_i32": 0, "composite_fwd": 0}
+launch_counts = {"scan_f32": 0, "scan_i32": 0, "composite_fwd": 0,
+                 "composite_bwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,6 +42,9 @@ _SIGNATURES = {
     "msgs_scan_i32": [_P, _P, _P, _I, ctypes.c_longlong, _P],
     # (payload, first_sub, n_sub, out, tiles, tiles_x, width, height, stream)
     "msgs_composite_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # (payload, first_sub, n_sub, res, cot, dpay, tiles, tiles_x, width,
+    #  height, image_only, stream)
+    "msgs_composite_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -1,19 +1,26 @@
-"""Tile compositor, forward: the CUDA kernel and its plain version.
+"""Tile compositor, forward and backward: the CUDA kernels and their plain
+versions.
 
-Port of msgs/kernels/composite.py (forward only). The payload layout, the
-column indices `F_*` and the (T, NOUT, 256) channel-major output rows `O_*`
-are the reference's. `composite_reference` is the plain PyTorch version of
+Port of msgs/kernels/composite.py. The payload layout, the column indices
+`F_*` and the (T, NOUT, 256) channel-major output rows `O_*` are the
+reference's. `_composite_plain` is the plain PyTorch version of
 `composite_reference`/`_block_forward`, vectorised over tiles and looped
-over sub-block depth; `composite` launches msgs_torch/csrc/composite_fwd.cu
-for CUDA tensors and uses the plain version for CPU tensors.
+over sub-block depth; `composite_bwd_reference` is the plain version of
+`_bwd_kernel`, looped the same way.
 
-Both versions evaluate α in tile-local pixel offsets (dx = px_local −
-(mx − tile_x0)), as the Pallas kernel's _BlockCtx does, and chain each
+`composite` is differentiable (a torch.autograd.Function, the counterpart
+of the JAX custom_vjp pair): for a CUDA payload its forward launches
+msgs_torch/csrc/composite_fwd.cu and its backward
+msgs_torch/csrc/composite_bwd.cu; for a CPU payload both are the plain
+versions. `composite_reference` runs the plain forward and backward on any
+device.
+
+Every version evaluates α in tile-local pixel offsets (dx = px_local −
+(mx − tile_x0)), as the Pallas kernel's _BlockCtx does, and chains each
 32-entry sub-block's Hillis-Steele prefix product of (1 − α) from the
-transmittance the sub-block starts with, as _block_forward does.
-
-The backward kernel (msgs/kernels/composite.py:_bwd_kernel) is not ported
-yet: rendering here runs without autograd.
+transmittance the sub-block starts with, as _block_forward does. The
+backward recomputes α, T and done with the forward's arithmetic, so it
+stops exactly where the forward stopped.
 """
 from __future__ import annotations
 
@@ -134,22 +141,134 @@ def _composite_plain(payload, first, n_sub, tiles: int, tiles_x: int,
     return state, n_work
 
 
-def composite_reference(payload, sub_tile, sub_valid, tile_last_sub,
-                        tiles: int, tiles_x: int, width: int, height: int,
-                        image_only: bool = False,
-                        bwd_bf16: bool = False) -> torch.Tensor:
-    """Plain PyTorch compositor on any device: payload (B_cap, BLOCK, NFEAT)
-    float32 → tiles_out (tiles, NOUT, NPIX). `image_only`/`bwd_bf16` only
-    shape the (not yet ported) backward pass."""
-    first, n_sub = tile_sub_ranges(sub_tile, sub_valid, tile_last_sub, tiles)
-    return _composite_plain(payload, first, n_sub, tiles, tiles_x, width,
-                            height)[0]
+def composite_bwd_reference(payload, first, n_sub, res, cot, tiles: int,
+                            tiles_x: int, width: int, height: int,
+                            image_only: bool = False) -> torch.Tensor:
+    """Plain backward of the compositor: dL/dpayload (B_cap, BLOCK, NFEAT)
+    from the forward output `res` and its cotangent `cot` (tiles, NOUT,
+    NPIX), in the arithmetic of msgs/kernels/composite.py:_bwd_kernel.
+
+    With φ_i = Σ_c g_c·f_c over the colour columns (r g b, plus depth and
+    psize unless image_only), prefix_i the running Σ_{j≤i} w_j·φ_j of the
+    tile and S_i = (total_phi + T_final·g_T) − prefix_i:
+    dα_i = T_i·φ_i − S_i/(1 − α_i) on alive, unmasked pairs; d{mean2D,
+    conic, opacity} follow from the six pixel-monomial moments of
+    dpower = dα·α·[α_raw < 0.99], d{colour column c} = Σ_p w·g_c. Columns
+    past the computed ones, and the rows of sub-blocks after a tile
+    saturated or outside every tile, are 0."""
+    dev = payload.device
+    nf = 3 if image_only else 5
+    feats = payload.reshape(-1, SUB, NFEAT)
+    dpay = torch.zeros_like(feats)
+    pxl, pyl = _local_pix(dev)
+    ox_all, oy_all = _tile_origin(tiles, tiles_x, dev)
+    g_all = cot[:, O_R:O_ACC + 1]                     # (T, 5, NPIX)
+    total_phi = ((res[:, O_R] * cot[:, O_R] + res[:, O_G] * cot[:, O_G]
+                  + res[:, O_B] * cot[:, O_B])
+                 + res[:, O_DEPTH] * cot[:, O_DEPTH]
+                 + res[:, O_ACC] * cot[:, O_ACC])
+    sfx_all = total_phi + res[:, O_T] * cot[:, O_T]   # (T, NPIX)
+    state = _init_state(tiles, tiles_x, width, height, dev)
+    t_run = state[:, O_T].clone()                     # (T, NPIX)
+    done_run = state[:, O_DONE].clone()
+    p_run = torch.zeros_like(t_run)                   # running Σ w·φ
+
+    order = torch.argsort(n_sub.long(), descending=True, stable=True)
+    counts = n_sub.long()[order]
+    depth = int(counts[0]) if tiles else 0
+    n_active = torch.searchsorted(-counts.cpu(), -torch.arange(depth)).tolist()
+    for d in range(depth):
+        tid = order[:n_active[d]]
+        feat = feats[first[tid].long() + d]           # (A, SUB, NFEAT)
+        t_in = t_run[tid][:, None, :]                 # (A, 1, NPIX)
+        done = done_run[tid][:, None, :]
+        g = g_all[tid]                                # (A, 5, NPIX)
+
+        mxl = feat[..., F_MX] - ox_all[tid][:, None]  # (A, SUB)
+        myl = feat[..., F_MY] - oy_all[tid][:, None]
+        dx = pxl - mxl[..., None]                     # (A, SUB, NPIX)
+        dy = pyl - myl[..., None]
+        cxx = feat[..., F_CXX, None]
+        cxy = feat[..., F_CXY, None]
+        cyy = feat[..., F_CYY, None]
+        power = -0.5 * (cxx * dx * dx + cyy * dy * dy) - cxy * dx * dy
+        alpha_raw = feat[..., F_OP, None] * torch.exp(power)
+        mask = (alpha_raw >= ALPHA_MIN) & (power <= 0.0)
+        alpha = torch.where(mask, torch.clamp(alpha_raw, max=ALPHA_MAX), 0.0)
+        f = 1.0 - alpha
+        cum = f
+        k = 1
+        while k < SUB:
+            cum = torch.cat([cum[:, :k], cum[:, k:] * cum[:, :-k]], dim=1)
+            k *= 2
+        cum_excl = torch.cat([torch.ones_like(cum[:, :1]), cum[:, :-1]],
+                             dim=1)
+        t_after = t_in * cum
+        alive = (t_after >= T_EPS).to(torch.float32) * (1.0 - done)
+        w = alpha * t_in * cum_excl * alive           # (A, SUB, NPIX)
+        t_i = t_in * cum_excl
+
+        phi = g[:, None, 0] * feat[..., F_R, None]
+        for c in range(1, nf):
+            phi = phi + g[:, None, c] * feat[..., F_R + c, None]
+        # Inclusive prefix of w·φ within the sub: the Hillis-Steele tree of
+        # _sub_cumsum_static, offset by the tile's earlier sub-blocks.
+        loc = w * phi
+        k = 1
+        while k < SUB:
+            loc = torch.cat([loc[:, :k], loc[:, k:] + loc[:, :-k]], dim=1)
+            k *= 2
+        prefix = p_run[tid][:, None, :] + loc
+        suffix = sfx_all[tid][:, None, :] - prefix
+        d_alpha = (t_i * phi - suffix / f) * alive * mask.to(torch.float32)
+        unclamped = (alpha_raw < ALPHA_MAX).to(torch.float32)
+        d_power = d_alpha * alpha * unclamped
+
+        dp_x = d_power * pxl
+        dp_y = d_power * pyl
+        d_q20 = (dp_x * pxl).sum(-1)                  # (A, SUB)
+        d_q11 = (dp_x * pyl).sum(-1)
+        d_q02 = (dp_y * pyl).sum(-1)
+        d_q10 = dp_x.sum(-1)
+        d_q01 = dp_y.sum(-1)
+        d_q00 = d_power.sum(-1)
+        cxx, cxy, cyy = feat[..., F_CXX], feat[..., F_CXY], feat[..., F_CYY]
+        op = feat[..., F_OP]
+        rows = torch.zeros_like(feat)
+        rows[..., F_CXX] = -0.5 * (d_q20 - 2.0 * mxl * d_q10
+                                   + mxl * mxl * d_q00)
+        rows[..., F_CYY] = -0.5 * (d_q02 - 2.0 * myl * d_q01
+                                   + myl * myl * d_q00)
+        rows[..., F_CXY] = -(d_q11 - myl * d_q10 - mxl * d_q01
+                             + mxl * myl * d_q00)
+        rows[..., F_MX] = cxx * (d_q10 - mxl * d_q00) + \
+            cxy * (d_q01 - myl * d_q00)
+        rows[..., F_MY] = cyy * (d_q01 - myl * d_q00) + \
+            cxy * (d_q10 - mxl * d_q00)
+        rows[..., F_OP] = torch.where(
+            op > 0.0, d_q00 / torch.clamp(op, min=1e-30), 0.0)
+        for c in range(nf):
+            rows[..., F_R + c] = (w * g[:, None, c]).sum(-1)
+        # Sub-blocks past a saturated tile: the CUDA kernel stops there and
+        # leaves the zeros; here they compute to zero (alive ≡ 0).
+        dpay[first[tid].long() + d] = rows
+
+        # Advance T and done exactly as the forward does.
+        t_run[tid] = torch.where(alive > 0.0, t_after, t_in).amin(dim=1)
+        done_run[tid] = torch.maximum(
+            done[:, 0], (t_after[:, -1] < T_EPS).to(torch.float32))
+        p_run[tid] = prefix[:, -1]
+    return dpay.reshape(payload.shape)
+
+
+def _check_payload(payload):
+    if payload.dtype != torch.float32 or payload.shape[-1] != NFEAT:
+        raise TypeError("composite: payload must be float32 (..., 12)")
 
 
 def _composite_cuda(payload, first, n_sub, tiles: int, tiles_x: int,
                     width: int, height: int) -> torch.Tensor:
-    if payload.dtype != torch.float32 or payload.shape[-1] != NFEAT:
-        raise TypeError("composite: payload must be float32 (..., 12)")
+    _check_payload(payload)
     lib = _build.load()
     payload = payload.contiguous()
     first = first.to(torch.int32).contiguous()
@@ -165,18 +284,100 @@ def _composite_cuda(payload, first, n_sub, tiles: int, tiles_x: int,
     return out
 
 
+def _composite_bwd_cuda(payload, first, n_sub, res, cot, tiles: int,
+                        tiles_x: int, width: int, height: int,
+                        image_only: bool) -> torch.Tensor:
+    _check_payload(payload)
+    for name, x in (("res", res), ("cot", cot)):
+        if x.dtype != torch.float32 or tuple(x.shape) != (tiles, NOUT, NPIX):
+            raise TypeError(f"composite backward: {name} must be float32 "
+                            f"({tiles}, {NOUT}, {NPIX})")
+    lib = _build.load()
+    payload = payload.contiguous()
+    first = first.to(torch.int32).contiguous()
+    n_sub = n_sub.to(torch.int32).contiguous()
+    res = res.contiguous()
+    cot = cot.contiguous()
+    dpay = torch.zeros_like(payload)
+    err = lib.msgs_composite_bwd(payload.data_ptr(), first.data_ptr(),
+                                 n_sub.data_ptr(), res.data_ptr(),
+                                 cot.data_ptr(), dpay.data_ptr(), tiles,
+                                 tiles_x, width, height, int(image_only),
+                                 _build.stream_ptr(payload))
+    _build.check(err, "composite_bwd")
+    _build.launch_counts["composite_bwd"] += 1
+    return dpay
+
+
+def _on(payload, cuda_fn, plain_fn, *args):
+    """The kernel for a CUDA payload, the plain version for a CPU one."""
+    if payload.device.type == "cuda":
+        return cuda_fn(payload, *args)
+    if payload.device.type == "cpu":
+        return plain_fn(payload, *args)
+    raise ValueError(f"composite: unsupported device {payload.device}")
+
+
+class _Composite(torch.autograd.Function):
+    """The compositor with its backward. Residuals are the payload, the
+    tile ranges and the forward output, as _composite_fwd saves them."""
+
+    @staticmethod
+    def forward(ctx, payload, first, n_sub, tiles, tiles_x, width, height,
+                image_only, plain):
+        args = (first, n_sub, tiles, tiles_x, width, height)
+        if plain:
+            out = _composite_plain(payload, *args)[0]
+        else:
+            out = _on(payload, _composite_cuda,
+                      lambda *a: _composite_plain(*a)[0], *args)
+        ctx.save_for_backward(payload, first, n_sub, out)
+        ctx.static = (tiles, tiles_x, width, height, image_only, plain)
+        return out
+
+    @staticmethod
+    def backward(ctx, g_out):
+        payload, first, n_sub, out = ctx.saved_tensors
+        tiles, tiles_x, width, height, image_only, plain = ctx.static
+        args = (first, n_sub, out, g_out.contiguous(), tiles, tiles_x,
+                width, height, image_only)
+        if plain:
+            dpay = composite_bwd_reference(payload, *args)
+        else:
+            dpay = _on(payload, _composite_bwd_cuda, composite_bwd_reference,
+                       *args)
+        return dpay, None, None, None, None, None, None, None, None
+
+
+def _apply(payload, sub_tile, sub_valid, tile_last_sub, tiles, tiles_x,
+           width, height, image_only, bwd_bf16, plain):
+    if bwd_bf16:
+        raise NotImplementedError(
+            "msgs_torch: the bwd_bf16 compositor backward is not ported "
+            "(ROADMAP.md, kernel queue)")
+    first, n_sub = tile_sub_ranges(sub_tile, sub_valid, tile_last_sub, tiles)
+    return _Composite.apply(payload, first, n_sub, tiles, tiles_x, width,
+                            height, bool(image_only), plain)
+
+
+def composite_reference(payload, sub_tile, sub_valid, tile_last_sub,
+                        tiles: int, tiles_x: int, width: int, height: int,
+                        image_only: bool = False,
+                        bwd_bf16: bool = False) -> torch.Tensor:
+    """Plain PyTorch compositor on any device: payload (B_cap, BLOCK, NFEAT)
+    float32 → tiles_out (tiles, NOUT, NPIX), differentiable through the
+    plain backward. With `image_only`, the depth and acc cotangents are
+    taken as structurally zero in the backward, as in the JAX package."""
+    return _apply(payload, sub_tile, sub_valid, tile_last_sub, tiles,
+                  tiles_x, width, height, image_only, bwd_bf16, plain=True)
+
+
 def composite(payload, sub_tile, sub_valid, tile_last_sub, tiles: int,
               tiles_x: int, width: int, height: int,
               image_only: bool = False, bwd_bf16: bool = False
               ) -> torch.Tensor:
     """Composite packed splat blocks into per-tile states (tiles, NOUT,
-    NPIX): the CUDA kernel for a CUDA payload, the plain version for a CPU
-    payload."""
-    first, n_sub = tile_sub_ranges(sub_tile, sub_valid, tile_last_sub, tiles)
-    if payload.device.type == "cuda":
-        return _composite_cuda(payload, first, n_sub, tiles, tiles_x, width,
-                               height)
-    if payload.device.type == "cpu":
-        return _composite_plain(payload, first, n_sub, tiles, tiles_x,
-                                width, height)[0]
-    raise ValueError(f"composite: unsupported device {payload.device}")
+    NPIX), differentiable: the CUDA kernels (forward and backward) for a
+    CUDA payload, the plain versions for a CPU payload."""
+    return _apply(payload, sub_tile, sub_valid, tile_last_sub, tiles,
+                  tiles_x, width, height, image_only, bwd_bf16, plain=False)

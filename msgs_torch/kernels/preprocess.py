@@ -3,7 +3,10 @@ multi-scale splat selection and the tile rectangle, as plain torch ops.
 
 Port of msgs/kernels/preprocess.py:144 `preprocess`. The arithmetic follows
 the JAX version expression by expression (same operand order), so the
-integer outputs (radii, tile rects) land on the same values.
+integer outputs (radii, tile rects) land on the same values. Autograd gives
+the backward; the gradient path uses `torch.maximum` where JAX has
+`jnp.maximum` (a tie splits the gradient in both) and detaches what JAX
+stops.
 """
 from __future__ import annotations
 
@@ -62,11 +65,17 @@ class PreprocessOut(NamedTuple):
     visible: torch.Tensor      # (N,)  bool — survives culling + MS selection
 
 
+def _max(x, lo):
+    """jnp.maximum semantics, gradient included: at a tie x == lo each side
+    gets half (torch.clamp would pass all of it to x)."""
+    return torch.maximum(x, torch.as_tensor(lo, dtype=x.dtype,
+                                            device=x.device))
+
+
 def _clip(x, lo, hi):
     """jnp.clip semantics: min(max(x, lo), hi), bounds may be tensors."""
-    lo = torch.as_tensor(lo, dtype=x.dtype, device=x.device)
     hi = torch.as_tensor(hi, dtype=x.dtype, device=x.device)
-    return torch.minimum(torch.maximum(x, lo), hi)
+    return torch.minimum(_max(x, lo), hi)
 
 
 def _ewa_project(cov6, means3d, world_view_t, tanfovx, tanfovy, focal_x,
@@ -181,15 +190,15 @@ def preprocess(
     conics = torch.stack([cyy * inv_det, -cxy * inv_det, cxx * inv_det], dim=1)
 
     mid = 0.5 * (cxx + cyy)
-    disc = torch.sqrt(torch.clamp(mid * mid - det, min=0.1))
+    disc = torch.sqrt(_max(mid * mid - det, 0.1))
     lam_max = mid + disc
     radius = torch.ceil(3.0 * torch.sqrt(torch.clamp(lam_max, min=0.0)))
 
     # Footprint statistic from the undilated covariance.
     det0 = cxx0 * cyy0 - cxy * cxy
     mid0 = 0.5 * (cxx0 + cyy0)
-    disc0 = torch.sqrt(torch.clamp(mid0 * mid0 - det0, min=1e-8))
-    pixel_size = 2.0 * torch.sqrt(torch.clamp(mid0 + disc0, min=1e-8))
+    disc0 = torch.sqrt(_max(mid0 * mid0 - det0, 1e-8))
+    pixel_size = 2.0 * torch.sqrt(_max(mid0 + disc0, 1e-8))
 
     visible = (depths > NEAR_CULL) & (det > 0)
     if live_mask is not None:
@@ -207,8 +216,7 @@ def preprocess(
         dirs = means3d - camera.cam_center[None, :]
         dirs = dirs / torch.sqrt(
             torch.sum(dirs * dirs, dim=1, keepdim=True) + 1e-12)
-        colors = torch.clamp(eval_sh(sh, dirs, active_sh_degree) + 0.5,
-                             min=0.0)
+        colors = _max(eval_sh(sh, dirs, active_sh_degree) + 0.5, 0.0)
 
     # Effective opacity: MS selection weights fold in multiplicatively.
     op = opacities
@@ -217,10 +225,11 @@ def preprocess(
         op = op * occ_multiplier[:, bucket]
 
     def _fade_weight(arg_num):
-        """Linear ramp over `fade_size` pixels, or a hard step at 0."""
+        """Linear ramp over `fade_size` pixels, or a hard step at 0 (a
+        comparison, so it carries no gradient, as JAX's stop_gradient)."""
         if fade_size <= 0.0:
             return (arg_num >= 0.0).to(torch.float32)
-        return torch.clamp(arg_num / fade_size, 0.0, 1.0)
+        return _clip(arg_num / fade_size, 0.0, 1.0)
 
     if filter_small:
         if fade_ungated:
@@ -245,15 +254,17 @@ def preprocess(
 
     # Tile rectangle: the intersection of the tile-rects of the α ≥ 1/255
     # ellipse bbox and of the reference's square ceil(3σ) box.
-    k2 = 2.0 * torch.log(torch.clamp(op, min=1e-12) / ALPHA_MIN)
+    # The rectangle is integer structure: opacity, mean and radius enter it
+    # detached, as JAX stops their gradients.
+    k2 = 2.0 * torch.log(torch.clamp(op.detach(), min=1e-12) / ALPHA_MIN)
     k = torch.sqrt(torch.clamp(k2, min=0.0))
     ext_x = k * torch.sqrt(torch.clamp(cxx, min=0.0))
     ext_y = k * torch.sqrt(torch.clamp(cyy, min=0.0))
     tiles_x = (W_img + TILE - 1) // TILE
     tiles_y = (H + TILE - 1) // TILE
-    mx = mean_px[:, 0]
-    my = mean_px[:, 1]
-    rad = radius
+    mx = mean_px[:, 0].detach()
+    my = mean_px[:, 1].detach()
+    rad = radius.detach()
     top = float(tiles_x + tiles_y)
 
     def lo(m, e):

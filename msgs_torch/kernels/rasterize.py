@@ -1,10 +1,13 @@
-"""Top-level rasterizer, forward: preprocess → bin → gather → composite →
-unpack.
+"""Top-level differentiable rasterizer: preprocess → bin → gather →
+composite → unpack.
 
-Port of msgs/kernels/rasterize.py without autograd: rendering runs under
-`torch.no_grad()`. The payload gather is a plain `feats[gauss_id]`; its
-custom VJP (sort by Gaussian id + segmented sums) and the compositor's
-backward kernel come with training. Images are channels-last (H, W, 3).
+Port of msgs/kernels/rasterize.py. Preprocess is torch ops (autograd gives
+its backward); binning runs on detached inputs and yields integer
+structure; the per-entry payload is a row gather from the small
+per-Gaussian feature table whose backward sorts the entry gradients by
+Gaussian id and sums each Gaussian's segment (`_GatherPayload`); the
+compositor is a torch.autograd.Function over the CUDA kernels
+(composite.py). Images are channels-last (H, W, 3).
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ import torch
 
 from msgs_torch.kernels import composite as comp
 from msgs_torch.kernels.binning import BLOCK, bin_gaussians
-from msgs_torch.kernels.preprocess import TILE, preprocess
+from msgs_torch.kernels.preprocess import TILE, PreprocessOut, preprocess
 
 
 class RasterSettings(NamedTuple):
@@ -26,11 +29,14 @@ class RasterSettings(NamedTuple):
     # plain version for CPU tensors); "reference": the plain version on any
     # device. ("pallas" keeps the JAX package's name for its kernel path.)
     backend: str = "auto"
-    # Gradient-path settings, accepted for API parity; the forward pass is
-    # the same with any value.
+    # Only the image carries gradients: depth and acc_pixel_size are
+    # detached, and the backward skips their cotangents (the trainer's
+    # setting, as in the JAX package).
     image_grads_only: bool = False
     # None → binning.ROW_TIGHT_DEFAULT ("bands"); False → plain rects.
     row_tight: object = None
+    # The JAX package's opt-in bf16 gradient variants; not ported
+    # (ROADMAP.md, kernel queue): `rasterize` raises if either is set.
     grad_pack_bf16: bool = False
     bwd_bf16: bool = False
     # filter_small probe: fade on the current footprint alone.
@@ -59,10 +65,60 @@ class CompositeResult(NamedTuple):
     overflow: torch.Tensor
 
 
-def gather_payload(pre, gauss_id) -> torch.Tensor:
-    """Per-entry compositor payload (E_cap/BLOCK, BLOCK, NFEAT): rows of the
-    per-Gaussian feature table in the comp.F_* column order, gathered by
-    gauss_id. Row N is a zero sentinel whose opacity 0 fails the α ≥ 1/255
+def _sort_by_gid(gid, values):
+    """(E, F) rows in order of their Gaussian id. Stable, so the order and
+    every sum taken over it are deterministic."""
+    return values[torch.argsort(gid, stable=True)]
+
+
+def _segmented_sums(values, gid_starts):
+    """Per-Gaussian sums of gid-sorted per-entry values: values (E, F) with
+    Gaussian g's entries at [gid_starts[g], gid_starts[g+1]); returns
+    (N, F). A segmented reduction in a fixed order, with no atomics and no
+    differences of a global prefix (the JAX package's two-level triangular
+    matmul prefix is a TPU mechanism; the contract is the sums)."""
+    # Entries past gid_starts[N] (dummies, truncated) belong to no segment.
+    # They must not form one: segment_reduce sums each segment serially
+    # on one thread, and that tail holds hundreds of thousands of entries.
+    return torch.segment_reduce(values, "sum", offsets=gid_starts.long(),
+                                axis=0)
+
+
+def gather_payload_vjp(g, gid, gid_starts, n_rows: int,
+                       image_only: bool) -> torch.Tensor:
+    """Backward of the payload gather: per-entry cotangents g (E, NFEAT) →
+    the feature table's gradient (n_rows, NFEAT). Only columns [0, F_B]
+    (image_only) or [0, F_PSIZE] are differentiable; the pad columns and
+    the sentinel row N get zeros."""
+    last = comp.F_B if image_only else comp.F_PSIZE
+    g_sorted = _sort_by_gid(gid, g[:, :last + 1])
+    d_table = torch.zeros((n_rows, g.shape[1]), dtype=g.dtype,
+                          device=g.device)
+    d_table[:n_rows - 1, :last + 1] = _segmented_sums(g_sorted, gid_starts)
+    return d_table
+
+
+class _GatherPayload(torch.autograd.Function):
+    """table[gid] whose backward is `gather_payload_vjp` (the JAX package's
+    `_gather_payload` custom VJP): never an E-row scatter-add."""
+
+    @staticmethod
+    def forward(ctx, table, gid, gid_starts, image_only):
+        ctx.save_for_backward(gid, gid_starts)
+        ctx.static = (table.shape[0], image_only)
+        return table[gid.long()]
+
+    @staticmethod
+    def backward(ctx, g):
+        gid, gid_starts = ctx.saved_tensors
+        n_rows, image_only = ctx.static
+        return (gather_payload_vjp(g.contiguous(), gid, gid_starts, n_rows,
+                                   image_only), None, None, None)
+
+
+def feature_table(pre) -> torch.Tensor:
+    """The per-Gaussian feature table (N+1, NFEAT) in the comp.F_* column
+    order. Row N is a zero sentinel whose opacity 0 fails the α ≥ 1/255
     test (dummy / truncated entries)."""
     N = pre.depths.shape[0]
     dev = pre.depths.device
@@ -74,10 +130,19 @@ def gather_payload(pre, gauss_id) -> torch.Tensor:
         pre.colors[:, 0], pre.colors[:, 1], pre.colors[:, 2],
         pre.depths, pre.pixel_sizes,
     ] + [zeros] * (comp.NFEAT - comp.F_PSIZE - 1), dim=1)
-    feats = torch.cat(
+    return torch.cat(
         [cols, torch.zeros((1, comp.NFEAT), dtype=torch.float32,
                            device=dev)], dim=0)
-    return feats[gauss_id.long()].reshape(-1, BLOCK, comp.NFEAT)
+
+
+def gather_payload(pre, gauss_id, gid_starts,
+                   image_only: bool = False) -> torch.Tensor:
+    """Per-entry compositor payload (E_cap/BLOCK, BLOCK, NFEAT): rows of
+    the feature table gathered by gauss_id, differentiable through
+    `gather_payload_vjp`."""
+    rows = _GatherPayload.apply(feature_table(pre), gauss_id, gid_starts,
+                                bool(image_only))
+    return rows.reshape(-1, BLOCK, comp.NFEAT)
 
 
 def composite_pipeline(pre, width: int, height: int,
@@ -89,10 +154,13 @@ def composite_pipeline(pre, width: int, height: int,
     tiles = tiles_x * tiles_y
     dev = pre.depths.device
 
-    binned = bin_gaussians(pre, width, height, settings.entry_cap,
+    # Binning yields integer structure only: it sees detached inputs.
+    binned = bin_gaussians(PreprocessOut(*(f.detach() for f in pre)),
+                           width, height, settings.entry_cap,
                            row_tight=settings.row_tight)
 
-    payload = gather_payload(pre, binned.gauss_id)
+    payload = gather_payload(pre, binned.gauss_id, binned.gid_starts,
+                             settings.image_grads_only)
 
     if settings.backend == "reference":
         fn = comp.composite_reference
@@ -129,7 +197,6 @@ def composite_pipeline(pre, width: int, height: int,
     )
 
 
-@torch.no_grad()
 def rasterize(
     camera,
     means3d: torch.Tensor,
@@ -154,7 +221,14 @@ def rasterize(
     reso_lvl: int = 0,
     settings: RasterSettings = RasterSettings(),
 ) -> RenderOutput:
-    """Render Gaussians on the device their tensors live on."""
+    """Render Gaussians on the device their tensors live on,
+    differentiably: gradients reach every float input that requires them,
+    `means2d_probe` (the screen-space densification gradient) included."""
+    if settings.bwd_bf16 or settings.grad_pack_bf16:
+        raise NotImplementedError(
+            "msgs_torch: RasterSettings.bwd_bf16 and grad_pack_bf16 (the "
+            "JAX package's bf16 gradient variants) are not ported yet "
+            "(ROADMAP.md, kernel queue)")
     H, W = camera.height, camera.width
 
     pre = preprocess(
@@ -170,6 +244,12 @@ def rasterize(
         occ_multiplier=occ_multiplier, dc_delta=dc_delta, reso_lvl=reso_lvl)
 
     res = composite_pipeline(pre, W, H, settings)
+
+    if settings.image_grads_only:
+        # Only the image differentiates; the transmittance stays
+        # differentiable for the T·bg background term below.
+        res = res._replace(depth=res.depth.detach(),
+                           acc_pixel_size=res.acc_pixel_size.detach())
 
     if bg is None:
         bg = torch.zeros((3,), dtype=torch.float32, device=means3d.device)

@@ -6,7 +6,10 @@ with a `live` mask; the parameter storage conventions are the reference's:
   rotation  — unnormalized quaternion wxyz (activation L2-normalize)
   opacity   — logit (activation sigmoid)
   occ_multiplier — logit if multi_occ else raw 1.0
-Densify, prune, grow and insert come with training.
+Ported so far: the fields, activations, the parameter dict the optimizer
+sees, and the per-step side-state updates of the train step (pixel-size
+records, max radii, densification statistics, base mask). Densify, prune,
+grow and insert are still to port (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -53,6 +56,17 @@ class GaussianState(NamedTuple):
     # --- scalars ---
     active_sh_degree: torch.Tensor  # () int32
 
+    @property
+    def num_live(self):
+        return torch.sum(self.live, dtype=torch.int32)
+
+    def params(self) -> dict:
+        """The optimized fields, as a dict keyed by field name."""
+        return {k: getattr(self, k) for k in PARAM_FIELDS}
+
+    def with_params(self, p: dict) -> "GaussianState":
+        return self._replace(**p)
+
     # --- activations ---
     def act_scales(self, modifier: float = 1.0):
         return torch.exp(self.scaling) * modifier
@@ -71,6 +85,10 @@ class GaussianState(NamedTuple):
 
     def shs(self):
         return torch.cat([self.features_dc, self.features_rest], dim=1)
+
+
+PARAM_FIELDS = ("xyz", "features_dc", "features_rest", "scaling",
+                "rotation", "opacity", "occ_multiplier", "dc_delta")
 
 
 def empty_state(cfg: GaussianConfig, device=None) -> GaussianState:
@@ -115,3 +133,63 @@ def state_from_numpy(arrays: dict, device=None) -> GaussianState:
     return GaussianState(**{
         k: torch.tensor(np.array(arrays[k]), device=dev)
         for k in GaussianState._fields})
+
+
+def one_up_sh_degree(st: GaussianState, max_degree: int) -> GaussianState:
+    return st._replace(active_sh_degree=torch.clamp(
+        st.active_sh_degree + 1, max=max_degree))
+
+
+def add_densification_stats(st: GaussianState, probe_grad: torch.Tensor,
+                            update_mask: torch.Tensor, lvl) -> GaussianState:
+    """Accumulate screen-space gradient norms per level."""
+    pg = probe_grad[:, :2]
+    norms = torch.sqrt(torch.sum(pg * pg, dim=1))
+    m = update_mask & st.live
+    lvl_oh = torch.nn.functional.one_hot(
+        torch.as_tensor(lvl, device=st.denom.device).long(),
+        st.denom.shape[1]).to(torch.float32)
+    return st._replace(
+        xyz_grad_accum=st.xyz_grad_accum
+        + (m * norms)[:, None] * lvl_oh[None, :],
+        denom=st.denom + m.to(torch.float32)[:, None] * lvl_oh[None, :],
+    )
+
+
+def update_max_radii(st: GaussianState, radii, visible) -> GaussianState:
+    return st._replace(max_radii2d=torch.where(
+        visible & st.live,
+        torch.maximum(st.max_radii2d, radii.to(torch.float32)),
+        st.max_radii2d))
+
+
+def update_pixel_sizes(st: GaussianState, pixel_sizes, lvl: int,
+                       reso_lvls: int) -> GaussianState:
+    """Running screen-footprint extrema, for rows whose own target level is
+    the rendered level only: the max side decays ×0.95 then takes the max
+    (renders at lvl > 0), the min side inflates ×1.05 then takes the min
+    (renders at lvl < L−1); uninitialised (−1) rows adopt the first value."""
+    seen = (pixel_sizes > 0) & st.live & (st.target_reso_lvl == lvl)
+    upd_max = seen & (lvl > 0)
+    decayed = torch.where(st.max_pixel_sizes >= 0,
+                          st.max_pixel_sizes * 0.95, st.max_pixel_sizes)
+    new_max = torch.where(
+        upd_max,
+        torch.where(decayed >= 0, torch.maximum(decayed, pixel_sizes),
+                    pixel_sizes),
+        st.max_pixel_sizes)
+
+    upd_min = seen & (lvl < reso_lvls - 1)
+    inflated = torch.where(st.min_pixel_sizes >= 0,
+                           st.min_pixel_sizes * 1.05, st.min_pixel_sizes)
+    new_min = torch.where(
+        upd_min,
+        torch.where(inflated >= 0, torch.minimum(inflated, pixel_sizes),
+                    pixel_sizes),
+        st.min_pixel_sizes)
+    return st._replace(max_pixel_sizes=new_max, min_pixel_sizes=new_min)
+
+
+def update_base_mask(st: GaussianState, visible) -> GaussianState:
+    """Record coarsest-level visibility (preserve_large)."""
+    return st._replace(base_mask=st.base_mask | (visible & st.live))

@@ -64,7 +64,7 @@ def _stream(dev, W, H, n, seed):
                      quats=f32(rng.normal(size=(n, 4))))
     b = bin_gaussians(pre, W, H, 1 << 17)
     tx = (W + 15) // 16
-    return (gather_payload(pre, b.gauss_id), b.sub_tile, b.sub_valid,
+    return (gather_payload(pre, b.gauss_id, b.gid_starts), b.sub_tile, b.sub_valid,
             b.tile_last_sub, tx * ((H + 15) // 16), tx, W, H)
 
 
@@ -78,6 +78,76 @@ def test_composite_kernel_matches_plain(dev, W, H, n):
                     (comp.O_T, 0.0), (comp.O_DONE, 0.0),
                     (comp.O_DEPTH, 1e-4), (comp.O_ACC, 1e-4)):
         assert (got[:, ch] - want[:, ch]).abs().max().item() <= tol, ch
+
+
+def _grad_budget(want):
+    return 3e-5 * max(want.abs().max().item(), 1e-8) + 1e-6
+
+
+def _bwd_args(dev, W, H, n, image_only):
+    payload, st, sv, tls, tiles, tx, W, H = _stream(dev, W, H, n, seed=W)
+    first, n_sub = comp.tile_sub_ranges(st, sv, tls, tiles)
+    res = comp.composite(payload, st, sv, tls, tiles, tx, W, H)
+    g = torch.Generator().manual_seed(W)
+    cot = torch.randn(res.shape, generator=g).to(dev)
+    return (payload, first, n_sub, res, cot, tiles, tx, W, H, image_only)
+
+
+@pytest.mark.parametrize("image_only", [False, True])
+@pytest.mark.parametrize("W,H,n", [(64, 64, 300), (256, 200, 3000)])
+def test_composite_bwd_kernel_matches_plain(dev, W, H, n, image_only):
+    args = _bwd_args(dev, W, H, n, image_only)
+    got = comp._composite_bwd_cuda(*args).reshape(-1, comp.NFEAT)
+    torch.cuda.synchronize()
+    want = comp.composite_bwd_reference(*args).reshape(-1, comp.NFEAT)
+    last = comp.F_B if image_only else comp.F_PSIZE
+    for c in range(last + 1):
+        assert want[:, c].abs().max() > 0, c
+        err = (got[:, c] - want[:, c]).abs().max().item()
+        assert err <= _grad_budget(want[:, c]), (c, err)
+    assert (got[:, last + 1:] == 0).all()
+
+
+def test_composite_bwd_kernel_is_deterministic(dev):
+    args = _bwd_args(dev, 256, 200, 3000, False)
+    a = comp._composite_bwd_cuda(*args)
+    b = comp._composite_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("image_only", [False, True])
+def test_rasterize_grads_on_card_match_cpu(dev, image_only):
+    """Gradients of a render on the card (both compositor kernels, the
+    gather VJP) vs on the CPU (plain versions), including means2d_probe."""
+    rng = np.random.default_rng(9)
+    n = 400
+    arrs = [np.concatenate([rng.uniform(-1, 1, (n, 2)),
+                            rng.uniform(3, 8, (n, 1))], 1),
+            np.exp(rng.uniform(-3.5, -1.5, (n, 3))), rng.normal(size=(n, 4)),
+            rng.uniform(0.2, 0.95, n), rng.normal(0, 0.3, (n, 16, 3)),
+            np.zeros((n, 2))]
+    grads = []
+    for d in (dev, "cpu"):
+        leaves = [torch.tensor(np.asarray(a, np.float32), device=d,
+                               requires_grad=True) for a in arrs]
+        m, s, q, o, sh, probe = leaves
+        cam = make_camera(np.eye(3), np.zeros(3), 0.8, 0.8, 88, 72, device=d)
+        out = rasterize(cam, m, o, shs=sh, scales=s, quats=q,
+                        means2d_probe=probe,
+                        bg=torch.tensor([0.2, 0.3, 0.4], device=d),
+                        settings=RasterSettings(entry_cap=1 << 15,
+                                                image_grads_only=image_only))
+        loss = torch.mean(out.image ** 2)
+        if not image_only:
+            loss = loss + 0.1 * torch.mean(out.depth) \
+                + 0.1 * torch.mean(out.acc_pixel_size)
+        grads.append(torch.autograd.grad(loss, leaves))
+    for name, a, b in zip(("means", "scales", "quats", "opac", "shs",
+                           "probe"), *grads):
+        assert b.abs().max() > 0, name
+        err = (a.cpu() - b).abs().max().item()
+        assert err <= _grad_budget(b), (name, err)
 
 
 def test_render_on_card_matches_cpu(dev):
