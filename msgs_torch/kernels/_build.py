@@ -32,7 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # name → number of launches of that kernel in this process
 launch_counts = {"scan_f32": 0, "scan_i32": 0, "composite_fwd": 0,
-                 "composite_bwd": 0}
+                 "composite_bwd": 0, "composite_bwd_bf16": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,6 +45,8 @@ _SIGNATURES = {
     # (payload, first_sub, n_sub, res, cot, dpay, tiles, tiles_x, width,
     #  height, image_only, stream)
     "msgs_composite_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "msgs_composite_bwd_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _P],
 }
 
 _lib = None

@@ -6,13 +6,14 @@ Port of msgs/kernels/composite.py. The payload layout, the column indices
 reference's. `_composite_plain` is the plain PyTorch version of
 `composite_reference`/`_block_forward`, vectorised over tiles and looped
 over sub-block depth; `composite_bwd_reference` is the plain version of
-`_bwd_kernel`, looped the same way.
+`_bwd_kernel`, looped the same way, and `composite_bwd_bf16_reference` the
+plain version of its `bwd_bf16=True` variant.
 
 `composite` is differentiable (a torch.autograd.Function, the counterpart
 of the JAX custom_vjp pair): for a CUDA payload its forward launches
 msgs_torch/csrc/composite_fwd.cu and its backward
-msgs_torch/csrc/composite_bwd.cu; for a CPU payload both are the plain
-versions. `composite_reference` runs the plain forward and backward on any
+msgs_torch/csrc/composite_bwd.cu (msgs_torch/csrc/composite_bwd_bf16.cu
+under `bwd_bf16`); for a CPU payload both are the plain versions. `composite_reference` runs the plain forward and backward on any
 device.
 
 Every version evaluates α in tile-local pixel offsets (dx = px_local −
@@ -23,6 +24,8 @@ backward recomputes α, T and done with the forward's arithmetic, so it
 stops exactly where the forward stopped.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -65,6 +68,84 @@ def _init_state(tiles: int, tiles_x: int, width: int, height: int, device):
     return state
 
 
+def _active_tiles(n_sub, tiles: int):
+    """The tiles still active at each sub-block depth d (those with more
+    than d sub-blocks), as index tensors: tiles in decreasing sub count, so
+    each depth's set is a prefix of one order."""
+    order = torch.argsort(n_sub.long(), descending=True, stable=True)
+    counts = n_sub.long()[order]
+    depth = int(counts[0]) if tiles else 0
+    n_active = torch.searchsorted(-counts.cpu(), -torch.arange(depth)).tolist()
+    return [order[:n] for n in n_active]
+
+
+class _Sub(NamedTuple):
+    """One sub-block of the active tiles, recomputed as the forward does:
+    (A, SUB) entry values and (A, SUB, NPIX) pair values."""
+    mxl: torch.Tensor
+    myl: torch.Tensor
+    dx: torch.Tensor
+    dy: torch.Tensor
+    alpha_raw: torch.Tensor
+    mask: torch.Tensor
+    alpha: torch.Tensor
+    cum: torch.Tensor          # inclusive prefix product of (1 − α)
+    cum_excl: torch.Tensor
+    t_after: torch.Tensor
+    alive: torch.Tensor
+    w: torch.Tensor            # α·T_i·alive
+
+
+def _sub_forward(feat, ox, oy, t_in, done) -> _Sub:
+    """α in tile-local pixel offsets and the 5-round Hillis-Steele prefix
+    product of (1 − α) (the multiply tree of _sub_cumprod_static), chained
+    from the transmittance t_in the sub-block starts with. feat (A, SUB,
+    NFEAT); ox, oy (A,) tile origins; t_in, done (A, 1, NPIX)."""
+    pxl, pyl = _local_pix(feat.device)
+    mxl = feat[..., F_MX] - ox[:, None]               # (A, SUB)
+    myl = feat[..., F_MY] - oy[:, None]
+    dx = pxl - mxl[..., None]                         # (A, SUB, NPIX)
+    dy = pyl - myl[..., None]
+    cxx = feat[..., F_CXX, None]
+    cxy = feat[..., F_CXY, None]
+    cyy = feat[..., F_CYY, None]
+    power = -0.5 * (cxx * dx * dx + cyy * dy * dy) - cxy * dx * dy
+    alpha_raw = feat[..., F_OP, None] * torch.exp(power)
+    mask = (alpha_raw >= ALPHA_MIN) & (power <= 0.0)
+    alpha = torch.where(mask, torch.clamp(alpha_raw, max=ALPHA_MAX), 0.0)
+    cum = 1.0 - alpha
+    k = 1
+    while k < SUB:
+        cum = torch.cat([cum[:, :k], cum[:, k:] * cum[:, :-k]], dim=1)
+        k *= 2
+    cum_excl = torch.cat([torch.ones_like(cum[:, :1]), cum[:, :-1]], dim=1)
+    t_after = t_in * cum
+    alive = (t_after >= T_EPS).to(torch.float32) * (1.0 - done)
+    w = alpha * t_in * cum_excl * alive
+    return _Sub(mxl, myl, dx, dy, alpha_raw, mask, alpha, cum, cum_excl,
+                t_after, alive, w)
+
+
+def _advance(sub: _Sub, t_in, done):
+    """The tile's T and done after a sub-block, as the forward leaves them:
+    (A, NPIX) each."""
+    t_new = torch.where(sub.alive > 0.0, sub.t_after, t_in).amin(dim=1)
+    done_new = torch.maximum(done[:, 0],
+                             (sub.t_after[:, -1] < T_EPS).to(torch.float32))
+    return t_new, done_new
+
+
+def _bwd_constants(res, cot):
+    """The cotangent's colour rows g (T, 5, NPIX) and each pixel's suffix
+    base total_phi + T_final·g_T (T, NPIX), in _composite_bwd_call's
+    order."""
+    total_phi = ((res[:, O_R] * cot[:, O_R] + res[:, O_G] * cot[:, O_G]
+                  + res[:, O_B] * cot[:, O_B])
+                 + res[:, O_DEPTH] * cot[:, O_DEPTH]
+                 + res[:, O_ACC] * cot[:, O_ACC])
+    return cot[:, O_R:O_ACC + 1], total_phi + res[:, O_T] * cot[:, O_T]
+
+
 def tile_sub_ranges(sub_tile, sub_valid, tile_last_sub, tiles: int):
     """(first_sub, n_sub) per tile, int32. Valid sub-blocks are a prefix of
     the stream and their tiles are nondecreasing (the keys are sorted), so a
@@ -88,57 +169,31 @@ def _composite_plain(payload, first, n_sub, tiles: int, tiles_x: int,
     dev = payload.device
     feats = payload.reshape(-1, SUB, NFEAT)
     state = _init_state(tiles, tiles_x, width, height, dev)
-    pxl, pyl = _local_pix(dev)
     ox_all, oy_all = _tile_origin(tiles, tiles_x, dev)
-    # Tiles in decreasing sub count: the tiles still active at depth d are a
-    # prefix of this order.
-    order = torch.argsort(n_sub.long(), descending=True, stable=True)
-    counts = n_sub.long()[order]
-    depth = int(counts[0]) if tiles else 0
-    # n_active[d] = number of tiles with more than d sub-blocks.
-    n_active = torch.searchsorted(-counts.cpu(), -torch.arange(depth)).tolist()
     n_work = torch.zeros((), dtype=torch.long, device=dev)
-    for d in range(depth):
-        tid = order[:n_active[d]]
+    for d, tid in enumerate(_active_tiles(n_sub, tiles)):
         st = state[tid]                               # (A, NOUT, NPIX)
         n_work = n_work + (st[:, O_DONE].amin(dim=1) == 0).sum()
         feat = feats[first[tid].long() + d]           # (A, SUB, NFEAT)
         t_in = st[:, O_T][:, None, :]                 # (A, 1, NPIX)
         done = st[:, O_DONE][:, None, :]
-
-        mxl = feat[..., F_MX] - ox_all[tid][:, None]  # (A, SUB)
-        myl = feat[..., F_MY] - oy_all[tid][:, None]
-        dx = pxl - mxl[..., None]                     # (A, SUB, NPIX)
-        dy = pyl - myl[..., None]
-        cxx = feat[..., F_CXX, None]
-        cxy = feat[..., F_CXY, None]
-        cyy = feat[..., F_CYY, None]
-        power = -0.5 * (cxx * dx * dx + cyy * dy * dy) - cxy * dx * dy
-        alpha_raw = feat[..., F_OP, None] * torch.exp(power)
-        mask = (alpha_raw >= ALPHA_MIN) & (power <= 0.0)
-        alpha = torch.where(mask, torch.clamp(alpha_raw, max=ALPHA_MAX), 0.0)
-
-        # Inclusive prefix product along the sub: 5 Hillis-Steele rounds,
-        # the same multiply tree as _sub_cumprod_static.
-        cum = 1.0 - alpha
-        k = 1
-        while k < SUB:
-            cum = torch.cat([cum[:, :k], cum[:, k:] * cum[:, :-k]], dim=1)
-            k *= 2
-        cum_excl = torch.cat([torch.ones_like(cum[:, :1]), cum[:, :-1]],
-                             dim=1)
-        t_after = t_in * cum
-        alive = (t_after >= T_EPS).to(torch.float32) * (1.0 - done)
-        w = alpha * t_in * cum_excl * alive           # (A, SUB, NPIX)
-
-        acc = torch.einsum("asc,asp->acp", feat[..., F_R:F_PSIZE + 1], w)
+        sub = _sub_forward(feat, ox_all[tid], oy_all[tid], t_in, done)
+        acc = torch.einsum("asc,asp->acp", feat[..., F_R:F_PSIZE + 1], sub.w)
         new = st.clone()
         new[:, O_R:O_ACC + 1] = st[:, O_R:O_ACC + 1] + acc
-        new[:, O_T] = torch.where(alive > 0.0, t_after, t_in).amin(dim=1)
-        new[:, O_DONE] = torch.maximum(
-            st[:, O_DONE], (t_after[:, -1] < T_EPS).to(torch.float32))
+        new[:, O_T], new[:, O_DONE] = _advance(sub, t_in, done)
         state[tid] = new
     return state, n_work
+
+
+def _hs_prefix_sum(loc):
+    """Inclusive prefix along the sub: the Hillis-Steele tree of
+    _sub_cumsum_static."""
+    k = 1
+    while k < SUB:
+        loc = torch.cat([loc[:, :k], loc[:, k:] + loc[:, :-k]], dim=1)
+        k *= 2
+    return loc
 
 
 def composite_bwd_reference(payload, first, n_sub, res, cot, tiles: int,
@@ -162,66 +217,30 @@ def composite_bwd_reference(payload, first, n_sub, res, cot, tiles: int,
     dpay = torch.zeros_like(feats)
     pxl, pyl = _local_pix(dev)
     ox_all, oy_all = _tile_origin(tiles, tiles_x, dev)
-    g_all = cot[:, O_R:O_ACC + 1]                     # (T, 5, NPIX)
-    total_phi = ((res[:, O_R] * cot[:, O_R] + res[:, O_G] * cot[:, O_G]
-                  + res[:, O_B] * cot[:, O_B])
-                 + res[:, O_DEPTH] * cot[:, O_DEPTH]
-                 + res[:, O_ACC] * cot[:, O_ACC])
-    sfx_all = total_phi + res[:, O_T] * cot[:, O_T]   # (T, NPIX)
+    g_all, sfx_all = _bwd_constants(res, cot)
     state = _init_state(tiles, tiles_x, width, height, dev)
     t_run = state[:, O_T].clone()                     # (T, NPIX)
     done_run = state[:, O_DONE].clone()
     p_run = torch.zeros_like(t_run)                   # running Σ w·φ
 
-    order = torch.argsort(n_sub.long(), descending=True, stable=True)
-    counts = n_sub.long()[order]
-    depth = int(counts[0]) if tiles else 0
-    n_active = torch.searchsorted(-counts.cpu(), -torch.arange(depth)).tolist()
-    for d in range(depth):
-        tid = order[:n_active[d]]
+    for d, tid in enumerate(_active_tiles(n_sub, tiles)):
         feat = feats[first[tid].long() + d]           # (A, SUB, NFEAT)
         t_in = t_run[tid][:, None, :]                 # (A, 1, NPIX)
         done = done_run[tid][:, None, :]
         g = g_all[tid]                                # (A, 5, NPIX)
-
-        mxl = feat[..., F_MX] - ox_all[tid][:, None]  # (A, SUB)
-        myl = feat[..., F_MY] - oy_all[tid][:, None]
-        dx = pxl - mxl[..., None]                     # (A, SUB, NPIX)
-        dy = pyl - myl[..., None]
-        cxx = feat[..., F_CXX, None]
-        cxy = feat[..., F_CXY, None]
-        cyy = feat[..., F_CYY, None]
-        power = -0.5 * (cxx * dx * dx + cyy * dy * dy) - cxy * dx * dy
-        alpha_raw = feat[..., F_OP, None] * torch.exp(power)
-        mask = (alpha_raw >= ALPHA_MIN) & (power <= 0.0)
-        alpha = torch.where(mask, torch.clamp(alpha_raw, max=ALPHA_MAX), 0.0)
-        f = 1.0 - alpha
-        cum = f
-        k = 1
-        while k < SUB:
-            cum = torch.cat([cum[:, :k], cum[:, k:] * cum[:, :-k]], dim=1)
-            k *= 2
-        cum_excl = torch.cat([torch.ones_like(cum[:, :1]), cum[:, :-1]],
-                             dim=1)
-        t_after = t_in * cum
-        alive = (t_after >= T_EPS).to(torch.float32) * (1.0 - done)
-        w = alpha * t_in * cum_excl * alive           # (A, SUB, NPIX)
-        t_i = t_in * cum_excl
+        sub = _sub_forward(feat, ox_all[tid], oy_all[tid], t_in, done)
+        mxl, myl, alpha, w = sub.mxl, sub.myl, sub.alpha, sub.w
+        t_i = t_in * sub.cum_excl
 
         phi = g[:, None, 0] * feat[..., F_R, None]
         for c in range(1, nf):
             phi = phi + g[:, None, c] * feat[..., F_R + c, None]
-        # Inclusive prefix of w·φ within the sub: the Hillis-Steele tree of
-        # _sub_cumsum_static, offset by the tile's earlier sub-blocks.
-        loc = w * phi
-        k = 1
-        while k < SUB:
-            loc = torch.cat([loc[:, :k], loc[:, k:] + loc[:, :-k]], dim=1)
-            k *= 2
-        prefix = p_run[tid][:, None, :] + loc
+        # Offset by the tile's earlier sub-blocks.
+        prefix = p_run[tid][:, None, :] + _hs_prefix_sum(w * phi)
         suffix = sfx_all[tid][:, None, :] - prefix
-        d_alpha = (t_i * phi - suffix / f) * alive * mask.to(torch.float32)
-        unclamped = (alpha_raw < ALPHA_MAX).to(torch.float32)
+        d_alpha = (t_i * phi - suffix / (1.0 - alpha)) * sub.alive * \
+            sub.mask.to(torch.float32)
+        unclamped = (sub.alpha_raw < ALPHA_MAX).to(torch.float32)
         d_power = d_alpha * alpha * unclamped
 
         dp_x = d_power * pxl
@@ -254,9 +273,94 @@ def composite_bwd_reference(payload, first, n_sub, res, cot, tiles: int,
         dpay[first[tid].long() + d] = rows
 
         # Advance T and done exactly as the forward does.
-        t_run[tid] = torch.where(alive > 0.0, t_after, t_in).amin(dim=1)
-        done_run[tid] = torch.maximum(
-            done[:, 0], (t_after[:, -1] < T_EPS).to(torch.float32))
+        t_run[tid], done_run[tid] = _advance(sub, t_in, done)
+        p_run[tid] = prefix[:, -1]
+    return dpay.reshape(payload.shape)
+
+
+def _bf16(x):
+    """Round f32 → bf16 (round to nearest even) and back."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def composite_bwd_bf16_reference(payload, first, n_sub, res, cot,
+                                 tiles: int, tiles_x: int, width: int,
+                                 height: int,
+                                 image_only: bool = False) -> torch.Tensor:
+    """Plain backward of the compositor under `bwd_bf16`, in the arithmetic
+    of msgs/kernels/composite.py:_bwd_kernel with bwd_bf16=True
+    (:502-519, :602-606, :624-639, :706-760). The forward recompute (α, T,
+    alive, done) is `composite_bwd_reference`'s; what differs:
+
+      φ = Σ_c bf16(f_c)·bf16(g_c)       (f32 sums of exact products)
+      prefix = P + per-sub inclusive prefix of bf16(w·φ)
+      the moments of the mean-centred dpower, dx = x − mxl, dy = y − myl:
+        q00 = Σ bf16(dp), and with the basis [x, y, 1] (exact in bf16)
+        m1 = Σ bf16(dp·dx)·[x, y, 1], m2 = Σ bf16(dp·dy)·[x, y, 1],
+        q10 = m1[2], q01 = m2[2], q20 = m1[0] − mxl·q10,
+        q11 = m1[1] − myl·q10, q02 = m2[1] − myl·q01,
+        d_mx = cxx·q10 + cxy·q01, d_my = cyy·q01 + cxy·q10,
+        d_cxx = −q20/2, d_cxy = −q11, d_cyy = −q02/2, d_op = q00/op;
+      dfeat_c = Σ_p bf16(w)·bf16(g_c).
+    Every product of two bf16 values (or of one and a basis value ≤ 15) is
+    exact in f32, so versions of this function differ only in the order of
+    f32 sums."""
+    dev = payload.device
+    nf = 3 if image_only else 5
+    feats = payload.reshape(-1, SUB, NFEAT)
+    dpay = torch.zeros_like(feats)
+    pxl, pyl = _local_pix(dev)
+    ox_all, oy_all = _tile_origin(tiles, tiles_x, dev)
+    g_all, sfx_all = _bwd_constants(res, cot)
+    state = _init_state(tiles, tiles_x, width, height, dev)
+    t_run = state[:, O_T].clone()
+    done_run = state[:, O_DONE].clone()
+    p_run = torch.zeros_like(t_run)                   # running Σ bf16(w·φ)
+
+    for d, tid in enumerate(_active_tiles(n_sub, tiles)):
+        feat = feats[first[tid].long() + d]           # (A, SUB, NFEAT)
+        t_in = t_run[tid][:, None, :]
+        done = done_run[tid][:, None, :]
+        g = _bf16(g_all[tid])                         # (A, 5, NPIX)
+        sub = _sub_forward(feat, ox_all[tid], oy_all[tid], t_in, done)
+        mxl, myl, alpha, w = sub.mxl, sub.myl, sub.alpha, sub.w
+        t_i = t_in * sub.cum_excl
+
+        fb = _bf16(feat[..., F_R:F_R + nf])           # (A, SUB, nf)
+        phi = g[:, None, 0] * fb[..., 0, None]
+        for c in range(1, nf):
+            phi = phi + g[:, None, c] * fb[..., c, None]
+        prefix = p_run[tid][:, None, :] + _hs_prefix_sum(_bf16(w * phi))
+        suffix = sfx_all[tid][:, None, :] - prefix
+        d_alpha = (t_i * phi - suffix / (1.0 - alpha)) * sub.alive * \
+            sub.mask.to(torch.float32)
+        unclamped = (sub.alpha_raw < ALPHA_MAX).to(torch.float32)
+        d_power = d_alpha * alpha * unclamped
+
+        m_dx = _bf16(d_power * sub.dx)
+        m_dy = _bf16(d_power * sub.dy)
+        q00 = _bf16(d_power).sum(-1)                  # (A, SUB)
+        q10 = m_dx.sum(-1)
+        q01 = m_dy.sum(-1)
+        q20 = (m_dx * pxl).sum(-1) - mxl * q10
+        q11 = (m_dx * pyl).sum(-1) - myl * q10
+        q02 = (m_dy * pyl).sum(-1) - myl * q01
+        cxx, cxy, cyy = feat[..., F_CXX], feat[..., F_CXY], feat[..., F_CYY]
+        op = feat[..., F_OP]
+        rows = torch.zeros_like(feat)
+        rows[..., F_MX] = cxx * q10 + cxy * q01
+        rows[..., F_MY] = cyy * q01 + cxy * q10
+        rows[..., F_CXX] = -0.5 * q20
+        rows[..., F_CXY] = -q11
+        rows[..., F_CYY] = -0.5 * q02
+        rows[..., F_OP] = torch.where(
+            op > 0.0, q00 / torch.clamp(op, min=1e-30), 0.0)
+        wb = _bf16(w)
+        for c in range(nf):
+            rows[..., F_R + c] = (wb * g[:, None, c]).sum(-1)
+        dpay[first[tid].long() + d] = rows
+
+        t_run[tid], done_run[tid] = _advance(sub, t_in, done)
         p_run[tid] = prefix[:, -1]
     return dpay.reshape(payload.shape)
 
@@ -284,13 +388,15 @@ def _composite_cuda(payload, first, n_sub, tiles: int, tiles_x: int,
     return out
 
 
-def _composite_bwd_cuda(payload, first, n_sub, res, cot, tiles: int,
-                        tiles_x: int, width: int, height: int,
-                        image_only: bool) -> torch.Tensor:
+def _bwd_launch(name, payload, first, n_sub, res, cot, tiles: int,
+                tiles_x: int, width: int, height: int,
+                image_only: bool) -> torch.Tensor:
+    """Launch the backward kernel `name` (composite_bwd or
+    composite_bwd_bf16); both take the same arguments."""
     _check_payload(payload)
-    for name, x in (("res", res), ("cot", cot)):
+    for arg, x in (("res", res), ("cot", cot)):
         if x.dtype != torch.float32 or tuple(x.shape) != (tiles, NOUT, NPIX):
-            raise TypeError(f"composite backward: {name} must be float32 "
+            raise TypeError(f"composite backward: {arg} must be float32 "
                             f"({tiles}, {NOUT}, {NPIX})")
     lib = _build.load()
     payload = payload.contiguous()
@@ -299,14 +405,23 @@ def _composite_bwd_cuda(payload, first, n_sub, res, cot, tiles: int,
     res = res.contiguous()
     cot = cot.contiguous()
     dpay = torch.zeros_like(payload)
-    err = lib.msgs_composite_bwd(payload.data_ptr(), first.data_ptr(),
-                                 n_sub.data_ptr(), res.data_ptr(),
-                                 cot.data_ptr(), dpay.data_ptr(), tiles,
-                                 tiles_x, width, height, int(image_only),
-                                 _build.stream_ptr(payload))
-    _build.check(err, "composite_bwd")
-    _build.launch_counts["composite_bwd"] += 1
+    err = getattr(lib, "msgs_" + name)(
+        payload.data_ptr(), first.data_ptr(), n_sub.data_ptr(),
+        res.data_ptr(), cot.data_ptr(), dpay.data_ptr(), tiles, tiles_x,
+        width, height, int(image_only), _build.stream_ptr(payload))
+    _build.check(err, name)
+    _build.launch_counts[name] += 1
     return dpay
+
+
+def _composite_bwd_cuda(*args) -> torch.Tensor:
+    """The exact backward kernel (composite_bwd.cu)."""
+    return _bwd_launch("composite_bwd", *args)
+
+
+def _composite_bwd_bf16_cuda(*args) -> torch.Tensor:
+    """The bwd_bf16 backward kernel (composite_bwd_bf16.cu)."""
+    return _bwd_launch("composite_bwd_bf16", *args)
 
 
 def _on(payload, cuda_fn, plain_fn, *args):
@@ -324,7 +439,7 @@ class _Composite(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, payload, first, n_sub, tiles, tiles_x, width, height,
-                image_only, plain):
+                image_only, bwd_bf16, plain):
         args = (first, n_sub, tiles, tiles_x, width, height)
         if plain:
             out = _composite_plain(payload, *args)[0]
@@ -332,32 +447,30 @@ class _Composite(torch.autograd.Function):
             out = _on(payload, _composite_cuda,
                       lambda *a: _composite_plain(*a)[0], *args)
         ctx.save_for_backward(payload, first, n_sub, out)
-        ctx.static = (tiles, tiles_x, width, height, image_only, plain)
+        ctx.static = (tiles, tiles_x, width, height, image_only, bwd_bf16,
+                      plain)
         return out
 
     @staticmethod
     def backward(ctx, g_out):
         payload, first, n_sub, out = ctx.saved_tensors
-        tiles, tiles_x, width, height, image_only, plain = ctx.static
+        tiles, tiles_x, width, height, image_only, bwd_bf16, plain = \
+            ctx.static
         args = (first, n_sub, out, g_out.contiguous(), tiles, tiles_x,
                 width, height, image_only)
-        if plain:
-            dpay = composite_bwd_reference(payload, *args)
-        else:
-            dpay = _on(payload, _composite_bwd_cuda, composite_bwd_reference,
-                       *args)
-        return dpay, None, None, None, None, None, None, None, None
+        ref, cuda = ((composite_bwd_bf16_reference, _composite_bwd_bf16_cuda)
+                     if bwd_bf16 else
+                     (composite_bwd_reference, _composite_bwd_cuda))
+        dpay = ref(payload, *args) if plain else _on(payload, cuda, ref,
+                                                     *args)
+        return (dpay,) + (None,) * 9
 
 
 def _apply(payload, sub_tile, sub_valid, tile_last_sub, tiles, tiles_x,
            width, height, image_only, bwd_bf16, plain):
-    if bwd_bf16:
-        raise NotImplementedError(
-            "msgs_torch: the bwd_bf16 compositor backward is not ported "
-            "(ROADMAP.md, kernel queue)")
     first, n_sub = tile_sub_ranges(sub_tile, sub_valid, tile_last_sub, tiles)
     return _Composite.apply(payload, first, n_sub, tiles, tiles_x, width,
-                            height, bool(image_only), plain)
+                            height, bool(image_only), bool(bwd_bf16), plain)
 
 
 def composite_reference(payload, sub_tile, sub_valid, tile_last_sub,
@@ -367,7 +480,8 @@ def composite_reference(payload, sub_tile, sub_valid, tile_last_sub,
     """Plain PyTorch compositor on any device: payload (B_cap, BLOCK, NFEAT)
     float32 → tiles_out (tiles, NOUT, NPIX), differentiable through the
     plain backward. With `image_only`, the depth and acc cotangents are
-    taken as structurally zero in the backward, as in the JAX package."""
+    taken as structurally zero in the backward, as in the JAX package; with
+    `bwd_bf16` the backward is composite_bwd_bf16_reference."""
     return _apply(payload, sub_tile, sub_valid, tile_last_sub, tiles,
                   tiles_x, width, height, image_only, bwd_bf16, plain=True)
 

@@ -35,8 +35,11 @@ class RasterSettings(NamedTuple):
     image_grads_only: bool = False
     # None → binning.ROW_TIGHT_DEFAULT ("bands"); False → plain rects.
     row_tight: object = None
-    # The JAX package's opt-in bf16 gradient variants; not ported
-    # (ROADMAP.md, kernel queue): `rasterize` raises if either is set.
+    # The JAX package's opt-in bf16 gradient variants (--fast_grads and
+    # --bwd_bf16): the gather VJP's gradient columns rounded to bf16 before
+    # the id sort and the segment sums; the compositor backward's φ, w·φ
+    # prefix, moments and colour sums as bf16 contractions with f32
+    # accumulation (composite_bwd_bf16.cu). Forward values are unchanged.
     grad_pack_bf16: bool = False
     bwd_bf16: bool = False
     # filter_small probe: fade on the current footprint alone.
@@ -85,13 +88,20 @@ def _segmented_sums(values, gid_starts):
 
 
 def gather_payload_vjp(g, gid, gid_starts, n_rows: int,
-                       image_only: bool) -> torch.Tensor:
+                       image_only: bool,
+                       pack_bf16: bool = False) -> torch.Tensor:
     """Backward of the payload gather: per-entry cotangents g (E, NFEAT) →
     the feature table's gradient (n_rows, NFEAT). Only columns [0, F_B]
     (image_only) or [0, F_PSIZE] are differentiable; the pad columns and
-    the sentinel row N get zeros."""
+    the sentinel row N get zeros. With `pack_bf16` (grad_pack_bf16) the
+    columns are rounded to bf16, round to nearest even, before the sort
+    and the f32 sums, as the JAX package's bf16-pair packing rounds them
+    (msgs/kernels/rasterize.py:157-220)."""
     last = comp.F_B if image_only else comp.F_PSIZE
-    g_sorted = _sort_by_gid(gid, g[:, :last + 1])
+    cols = g[:, :last + 1]
+    if pack_bf16:
+        cols = cols.to(torch.bfloat16).to(g.dtype)
+    g_sorted = _sort_by_gid(gid, cols)
     d_table = torch.zeros((n_rows, g.shape[1]), dtype=g.dtype,
                           device=g.device)
     d_table[:n_rows - 1, :last + 1] = _segmented_sums(g_sorted, gid_starts)
@@ -103,17 +113,18 @@ class _GatherPayload(torch.autograd.Function):
     `_gather_payload` custom VJP): never an E-row scatter-add."""
 
     @staticmethod
-    def forward(ctx, table, gid, gid_starts, image_only):
+    def forward(ctx, table, gid, gid_starts, image_only, pack_bf16=False):
         ctx.save_for_backward(gid, gid_starts)
-        ctx.static = (table.shape[0], image_only)
+        ctx.static = (table.shape[0], image_only, pack_bf16)
         return table[gid.long()]
 
     @staticmethod
     def backward(ctx, g):
         gid, gid_starts = ctx.saved_tensors
-        n_rows, image_only = ctx.static
+        n_rows, image_only, pack_bf16 = ctx.static
         return (gather_payload_vjp(g.contiguous(), gid, gid_starts, n_rows,
-                                   image_only), None, None, None)
+                                   image_only, pack_bf16),
+                None, None, None, None)
 
 
 def feature_table(pre) -> torch.Tensor:
@@ -135,13 +146,13 @@ def feature_table(pre) -> torch.Tensor:
                            device=dev)], dim=0)
 
 
-def gather_payload(pre, gauss_id, gid_starts,
-                   image_only: bool = False) -> torch.Tensor:
+def gather_payload(pre, gauss_id, gid_starts, image_only: bool = False,
+                   pack_bf16: bool = False) -> torch.Tensor:
     """Per-entry compositor payload (E_cap/BLOCK, BLOCK, NFEAT): rows of
     the feature table gathered by gauss_id, differentiable through
     `gather_payload_vjp`."""
     rows = _GatherPayload.apply(feature_table(pre), gauss_id, gid_starts,
-                                bool(image_only))
+                                bool(image_only), bool(pack_bf16))
     return rows.reshape(-1, BLOCK, comp.NFEAT)
 
 
@@ -160,7 +171,8 @@ def composite_pipeline(pre, width: int, height: int,
                            row_tight=settings.row_tight)
 
     payload = gather_payload(pre, binned.gauss_id, binned.gid_starts,
-                             settings.image_grads_only)
+                             settings.image_grads_only,
+                             settings.grad_pack_bf16)
 
     if settings.backend == "reference":
         fn = comp.composite_reference
@@ -224,11 +236,6 @@ def rasterize(
     """Render Gaussians on the device their tensors live on,
     differentiably: gradients reach every float input that requires them,
     `means2d_probe` (the screen-space densification gradient) included."""
-    if settings.bwd_bf16 or settings.grad_pack_bf16:
-        raise NotImplementedError(
-            "msgs_torch: RasterSettings.bwd_bf16 and grad_pack_bf16 (the "
-            "JAX package's bf16 gradient variants) are not ported yet "
-            "(ROADMAP.md, kernel queue)")
     H, W = camera.height, camera.width
 
     pre = preprocess(

@@ -3,9 +3,10 @@
 Port of msgs/train/loop.py: `render_state`, `eval_render`, `TrainState`,
 `init_train_state` and `train_step` (render → (1−λ)·L1 + λ·(1−SSIM) →
 backward → per-group Adam → pixel-size, max-radii, densification-stat and
-base-mask updates, with a step whose binning overflowed discarded). The
-structural steps (densify, grow, reset, insert) are still to port
-(ROADMAP.md).
+base-mask updates, with a step whose binning overflowed discarded), and the
+structural steps the trainer runs at their cadences (`densify_step`,
+`grow_step`, `reset_opacity_step`, `insert_large_step`), each of which
+zeroes the Adam moments of the rows it replaced.
 
 PyTorch runs eagerly: `train_step` builds the render's autograd graph,
 takes the gradients with `torch.autograd.grad`, and does everything after
@@ -25,8 +26,9 @@ from msgs_torch.kernels.rasterize import RasterSettings, RenderOutput, rasterize
 from msgs_torch.model import gaussians as G
 from msgs_torch.model.gaussians import GaussianConfig, GaussianState, \
     state_from_numpy
+from msgs_torch.ms.voxel import insert_large_gaussians
 from msgs_torch.train.optimizer import AdamState, OptimParams, \
-    adam_update, group_lrs, init_adam
+    adam_update, group_lrs, init_adam, zero_moments_at
 
 
 class TrainState(NamedTuple):
@@ -157,6 +159,55 @@ def train_step(state: TrainState, camera, gt_image, *,
                    "num_live": new.num_live}
     return TrainState(gaussians=new, adam=new_adam,
                       iteration=state.iteration + 1), metrics
+
+
+def densify_step(state: TrainState, key=None, *, op: OptimParams,
+                 scene_extent: float, max_screen_size: float,
+                 noise=None) -> TrainState:
+    """The level-0 densify-and-prune pass. `key` is the torch.Generator the
+    split draws its offsets from (or `noise`, (2, C, 3), the draws
+    themselves)."""
+    st, touched = G.densify_and_prune(
+        state.gaussians, key,
+        grad_threshold=op.densify_grad_threshold,
+        min_opacity=0.005,
+        scene_extent=scene_extent,
+        max_screen_size=max_screen_size,
+        percent_dense=op.percent_dense,
+        noise=noise)
+    return state._replace(gaussians=st,
+                          adam=zero_moments_at(state.adam, touched))
+
+
+def grow_step(state: TrainState, lvl: int, *, op: OptimParams) -> TrainState:
+    st, touched = G.grow_large_gaussians(
+        state.gaussians, lvl, grad_threshold=op.densify_grad_threshold)
+    return state._replace(gaussians=st,
+                          adam=zero_moments_at(state.adam, touched))
+
+
+def reset_opacity_step(state: TrainState) -> TrainState:
+    """Opacity reset; zeroes only the opacity group's moments at the reset
+    rows (the reference swaps just the opacity tensor in its optimizer)."""
+    st, touched = G.reset_opacity(state.gaussians)
+    adam = state.adam
+    m = touched[:, None]
+    adam = adam._replace(
+        mu={**adam.mu, "opacity": torch.where(m, 0.0, adam.mu["opacity"])},
+        nu={**adam.nu, "opacity": torch.where(m, 0.0, adam.nu["opacity"])})
+    return state._replace(gaussians=st, adam=adam)
+
+
+def insert_large_step(state: TrainState, mask, cur_min_pixel_sizes, lvl, *,
+                      scene_extent: float, voxel_reso: float):
+    """Voxel-insert the masked rows as level-`lvl` aggregates. Returns
+    (state, n_inserted as a 0-d int32 tensor)."""
+    st, touched, n_ins = insert_large_gaussians(
+        state.gaussians, mask, cur_min_pixel_sizes, lvl, scene_extent,
+        voxel_reso)
+    return (state._replace(gaussians=st,
+                           adam=zero_moments_at(state.adam, touched)),
+            n_ins)
 
 
 def eval_render(state, camera, *, cfg: GaussianConfig,

@@ -116,6 +116,38 @@ def test_composite_bwd_kernel_is_deterministic(dev):
     assert torch.equal(a, b)
 
 
+def _bf16_budget(want):
+    """The bf16 kernel vs its plain version: they differ in the order of
+    f32 sums (the tensor cores' accumulation) and in the rare bf16 rounding
+    flip of a w·φ or dpower operand that such a difference causes; 2e-3 of
+    the column's largest value, ten times tighter than the JAX suite's bf16
+    criterion (2e-2, tests/test_rasterize.py:157)."""
+    return 2e-3 * max(want.abs().max().item(), 1e-8) + 1e-6
+
+
+@pytest.mark.parametrize("image_only", [False, True])
+@pytest.mark.parametrize("W,H,n", [(64, 64, 300), (256, 200, 3000)])
+def test_composite_bwd_bf16_kernel_matches_plain(dev, W, H, n, image_only):
+    args = _bwd_args(dev, W, H, n, image_only)
+    got = comp._composite_bwd_bf16_cuda(*args).reshape(-1, comp.NFEAT)
+    torch.cuda.synchronize()
+    want = comp.composite_bwd_bf16_reference(*args).reshape(-1, comp.NFEAT)
+    last = comp.F_B if image_only else comp.F_PSIZE
+    for c in range(last + 1):
+        assert want[:, c].abs().max() > 0, c
+        err = (got[:, c] - want[:, c]).abs().max().item()
+        assert err <= _bf16_budget(want[:, c]), (c, err)
+    assert (got[:, last + 1:] == 0).all()
+
+
+def test_composite_bwd_bf16_kernel_is_deterministic(dev):
+    args = _bwd_args(dev, 256, 200, 3000, False)
+    a = comp._composite_bwd_bf16_cuda(*args)
+    b = comp._composite_bwd_bf16_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("image_only", [False, True])
 def test_rasterize_grads_on_card_match_cpu(dev, image_only):
     """Gradients of a render on the card (both compositor kernels, the
