@@ -52,6 +52,19 @@ Builds the CUDA kernels from msgs_torch/csrc (into build/msgs_torch/), then:
      then held against its plain version (BF16_BUDGET per column) on the
      last stream the run gave it at each image size, and on the streams of
      one train_step of the final state at each of COARSE_LVLS.
+  9. tools: the ported gather experiments (msgs_torch.tools.exp_gather and
+     exp_gather2) run in-process at their defaults (N = 100,000, E = 2^21);
+     counters are zeroed just before and read just after, and the gather
+     kernel must have run. Every variant must equal table[gid] in its
+     layout bit for bit (the scripts raise otherwise). Then gather_rows is
+     held against its plain version, bit for bit, on the render path's own
+     stream (the serving model's feature table, 131,073 × 12 at capacity
+     2^17, and binning's 1,687,552 gauss_id slots) in all three output
+     layouts, and timed there against table[gid]. A gather's bound counts
+     E·F floats written, E ids and each table row that gid references read
+     once (msgs_torch.tools.gather_bytes). The render path's
+     gather_payload is timed on the host clock and its device time read
+     from a profiler trace.
 
 Any failed check raises, and the script exits non-zero without its result
 lines. On success the second-to-last lines are the nvidia-smi line and one
@@ -642,7 +655,7 @@ def phase_main_path(dev):
     bench_entries = int(out.num_entries)
     print(f"[serve] launches over {renders} renders: {counts}", flush=True)
     for k, v in counts.items():
-        check(v > 0 or k.startswith("composite_bwd"),
+        check(v > 0 or k.startswith("composite_bwd") or k == "gather_rows",
               f"kernel {k} never launched on the serving path")
     for mode in modes:
         print(f"[serve] {mode}: num_entries per camera {entries[mode]}, "
@@ -1040,6 +1053,125 @@ def phase_trainer(dev, smi_line):
     return counts
 
 
+def phase_tools(dev, st, smi_line):
+    """The ported gather experiments, then the gather kernel on the render
+    path's stream (see the module docstring, item 9)."""
+    from msgs_torch.core.camera import make_camera
+    from msgs_torch.kernels import _build
+    from msgs_torch.kernels.binning import bin_gaussians
+    from msgs_torch.kernels.gather import gather_rows, gather_rows_plain
+    from msgs_torch.kernels.preprocess import preprocess
+    from msgs_torch.kernels.rasterize import feature_table, gather_payload
+    from msgs_torch.profile_render import _device_busy_ms
+    from msgs_torch.tools import exp_gather, exp_gather2, gather_bytes
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    runs = {"exp_gather": exp_gather.main([]),
+            "exp_gather2": exp_gather2.main([])}
+    torch.cuda.synchronize()
+    counts = dict(_build.launch_counts)
+    print(f"[tools] launches over both scripts: {counts}", flush=True)
+    check(counts["gather_rows"] > 0, "tools: the gather kernel never ran")
+    for script, res in runs.items():
+        for v, r in res.items():
+            check(r["max_abs_err"] in (None, 0.0),
+                  f"tools: {script} {v} differs from table[gid]")
+            check(math.isfinite(r["ms"]), f"tools: {script} {v} untimed")
+    # Every variant of a script gathers the same rows: one bound each.
+    script_bound = {script: max(r["bytes"] or 0 for r in res.values())
+                    / PEAK_BYTES * 1e3 for script, res in runs.items()}
+    print("[tools] scripts' default N=100000 E=2097152 F=16: " + "; ".join(
+        f"{script} {v} {r['ms']:.4f} ms" + (
+            "" if r["plain_ms"] is None else f" (plain {r['plain_ms']:.4f} ms)")
+        for script, res in runs.items() for v, r in res.items())
+        + "; bound " + ", ".join(f"{script} {b:.4f} ms" for script, b in
+                                 script_bound.items())
+        + f" (bytes); {smi_line}", flush=True)
+
+    # The render path's stream: the serving model's feature table and ids.
+    cam = make_camera(np.eye(3), np.zeros(3), 1.2, 0.8, W, H, device=dev)
+    with torch.no_grad():
+        pre = preprocess(cam, st.xyz, st.act_opacity(), shs=st.shs(),
+                         scales=st.act_scales(), quats=st.act_rotation(),
+                         active_sh_degree=st.active_sh_degree,
+                         live_mask=st.live)
+        b = bin_gaussians(pre, W, H, ENTRY_CAP)
+        table = feature_table(pre)
+    gid = b.gauss_id
+    rows, F = table.shape
+    E = gid.shape[0]
+    # A row per slot of the model's capacity, and binning's padded slots.
+    blk = 2048
+    check((rows, F) == (st.xyz.shape[0] + 1, 12) and E % blk == 0
+          and gid.dtype == torch.int32,
+          f"tools: render stream table {tuple(table.shape)}, gid {E} "
+          f"{gid.dtype}")
+    layouts = {"entry": None, "feature": None, "blocked": blk}
+    times = {}
+    for layout, block in layouts.items():
+        got = gather_rows(table, gid, "rows", layout, block)
+        torch.cuda.synchronize()
+        want = gather_rows_plain(table, gid, "rows", layout, block)
+        check(got.shape == want.shape and torch.equal(
+            got.view(torch.int32), want.view(torch.int32)),
+            f"tools: gather_rows {layout} differs from its plain version "
+            f"on the render stream")
+        times[layout] = median_ms(
+            lambda: gather_rows(table, gid, "rows", layout, block), 20)
+    plain = median_ms(lambda: gather_rows_plain(table, gid), 20)
+    lib = median_ms(lambda: table[gid], 20)
+    # Rows of the table that gid references: the live Gaussians that
+    # binning kept, and the sentinel row of its padded slots.
+    rows_read = int(torch.unique(gid).numel())
+    bound = gather_bytes(gid, F) / PEAK_BYTES * 1e3
+    print(f"[tools] gather_rows on the render stream ({rows}x{F} table, "
+          f"{rows_read} rows referenced, {E} ids): equal to its plain "
+          f"version bit for bit in every layout; kernel " + ", ".join(
+              f"{k} {v:.4f} ms" for k, v in times.items())
+          + f"; plain {plain:.4f} ms, table[gid] {lib:.4f} ms; bound "
+          f"{bound:.4f} ms (bytes)", flush=True)
+
+    # The render path's own gather: host clock against device time.
+    def payload():
+        return gather_payload(pre, gid, b.gid_starts)
+
+    with torch.no_grad():
+        wall = []
+        for _ in range(8):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            payload()
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        reps = 5
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                payload()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            busy = _device_busy_ms(path) / reps
+    print(f"[tools] render path gather_payload: {statistics.median(wall[1:]):.4f}"
+          f" ms host clock (synchronised, median of 7), device busy "
+          f"{busy:.4f} ms per call (profiler trace); {smi_line}", flush=True)
+    # A bitwise match in every layout: max|Δ| is 0.
+    rec = dict(ms=times["entry"], plain_ms=plain, library_ms=lib,
+               bound_ms=bound, bound_by="bytes", max_abs_err=0.0, extra=dict(
+                   shape=[E, F], rows_read=rows_read, ms_by_layout=times,
+                   script_ms={f"{script}:{v}": r["ms"]
+                              for script, res in runs.items()
+                              for v, r in res.items()},
+                   script_plain_ms={f"{script}:{v}": r["plain_ms"]
+                                    for script, res in runs.items()
+                                    for v, r in res.items()
+                                    if r["plain_ms"] is not None},
+                   script_bound_ms=script_bound))
+    return counts, rec
+
+
 def bench_scene(seed: int = 0):
     from msgs_torch.profile_render import bench_scene as scene
     return scene(seed)
@@ -1087,6 +1219,7 @@ def main():
     del bench_stream, small_stream
 
     serve_counts, renders, _, st, cfg = phase_main_path(dev)
+    tools_counts, gather_rec = phase_tools(dev, st, smi_line)
     train_counts, _ = phase_train(dev, st, cfg)
     del st
     phase_small_reference(dev)
@@ -1103,25 +1236,31 @@ def main():
                           "msgs/kernels/composite.py:486"),
         "composite_bwd_bf16": ("msgs_torch/csrc/composite_bwd_bf16.cu",
                                "msgs/kernels/composite.py:486 (bwd_bf16)"),
+        "gather_rows": ("msgs_torch/csrc/gather.cu",
+                        "tools/exp_gather.py:72, :103, :131; "
+                        "tools/exp_gather2.py:75, :106"),
     }
     kernel_recs = list(scans.items()) + [("composite_fwd", comp_rec),
                                          ("composite_bwd", bwd_rec),
-                                         ("composite_bwd_bf16", bf16_rec)]
+                                         ("composite_bwd_bf16", bf16_rec),
+                                         ("gather_rows", gather_rec)]
     for name, rec in kernel_recs:
         src, rep = meta[name]
-        # launches: over the three main-path runs, each counted from 0
-        # (serving renders, train_step calls, the trainer); then each run's.
+        # launches: over the four main-path runs, each counted from 0
+        # (serving renders, the gather tools, train_step calls, the
+        # trainer); then each run's.
         records.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": serve_counts[name] + train_counts[name]
-            + trainer_counts[name],
+            "launches": serve_counts[name] + tools_counts[name]
+            + train_counts[name] + trainer_counts[name],
             "launches_trainer": trainer_counts[name],
             "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"],
             "launches_train_step": train_counts[name],
-            "launches_serving": serve_counts[name]})
+            "launches_serving": serve_counts[name],
+            "launches_tools": tools_counts[name], **rec.get("extra", {})})
     print(f"[done] {time.perf_counter() - t_start:.1f} s; "
           f"{renders} serving renders, {STEPS} training steps, "
           f"{TRAIN_ITERS} trainer iterations", flush=True)

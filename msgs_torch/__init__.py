@@ -12,6 +12,7 @@ reference this package is held against (tests/test_torch_*.py):
   eval/     L1, SSIM, PSNR
   data/     PLY I/O (numpy)
   train/    train_step, per-group Adam, render entry points, PLY snapshots
+  tools/    experiment scripts (the row-gather layouts), run with -m
 
 Entry points take `device=None`, meaning the CUDA device; they raise when no
 GPU is present and run on the CPU only when the caller passes

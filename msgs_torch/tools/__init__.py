@@ -1,0 +1,76 @@
+"""Experiment scripts of the port: the counterparts of the JAX package's
+tools/exp_*.py, run as `python -m msgs_torch.tools.<name>`.
+
+Shared here: the command line (`[N] [E] [--device cpu]`), the timing (CUDA
+events on the card, the host clock on the CPU), the exact check every
+gather variant is held to and the bytes a gather must move.
+"""
+from __future__ import annotations
+
+import argparse
+import statistics
+import time
+
+import torch
+
+
+def parse_args(argv, doc: str) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description=doc)
+    p.add_argument("N", type=int, nargs="?", default=100_000,
+                   help="table rows (the table has N + 1)")
+    p.add_argument("E", type=int, nargs="?", default=1 << 21,
+                   help="entries gathered")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the CUDA device)")
+    return p.parse_args(argv)
+
+
+def clock_name(dev: torch.device) -> str:
+    return ("CUDA events" if dev.type == "cuda"
+            else f"host clock, {dev.type}")
+
+
+def device_name(dev: torch.device) -> str:
+    return (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+            else dev.type)
+
+
+def time_ms(fn, dev: torch.device, reps: int = 20) -> float:
+    """Median ms of one call of fn after one warm-up call: CUDA events on
+    a CUDA device, the host clock elsewhere."""
+    fn()
+    if dev.type != "cuda":
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+    torch.cuda.synchronize(dev)
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+def held_exact(name: str, got: torch.Tensor, want: torch.Tensor) -> None:
+    """Raises unless got equals want bit for bit (then max|Δ| is 0)."""
+    if got.shape != want.shape:
+        raise RuntimeError(f"{name}: shape {tuple(got.shape)}, want "
+                           f"{tuple(want.shape)}")
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        err = float((got - want).abs().max())
+        raise RuntimeError(f"{name}: differs from table[gid] (max|Δ| {err})")
+
+
+def gather_bytes(gid: torch.Tensor, F: int) -> int:
+    """Least bytes of an F-float row gather: E·F floats written, E int32 ids
+    read, and each table row that gid references read once."""
+    E = gid.shape[0]
+    return E * F * 4 + E * 4 + int(torch.unique(gid).numel()) * F * 4

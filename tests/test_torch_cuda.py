@@ -11,8 +11,10 @@ import pytest
 import torch
 
 from msgs_torch.core.camera import make_camera
+from msgs_torch.kernels import _build
 from msgs_torch.kernels import composite as comp
 from msgs_torch.kernels import scan
+from msgs_torch.kernels.gather import gather_rows, gather_rows_plain
 from msgs_torch.kernels.binning import bin_gaussians
 from msgs_torch.kernels.preprocess import preprocess
 from msgs_torch.kernels.rasterize import RasterSettings, gather_payload, \
@@ -208,3 +210,49 @@ def test_render_on_card_matches_cpu(dev):
 def test_wrappers_refuse_other_dtypes(dev):
     with pytest.raises(TypeError):
         scan.cumsum_rows(torch.zeros(4, dtype=torch.int64, device=dev))
+
+
+def _gather_inputs(dev, F, table_layout, rows=1001, E=2997, seed=0):
+    rng = np.random.default_rng(seed + F)
+    table = torch.tensor(rng.normal(size=(rows, F)).astype(np.float32),
+                         device=dev)
+    if table_layout == "features":
+        table = table.t().contiguous()
+    gid = torch.tensor(rng.integers(0, rows, E).astype(np.int32), device=dev)
+    return table, gid
+
+
+@pytest.mark.parametrize("out_layout", ["entry", "feature", "blocked"])
+@pytest.mark.parametrize("table_layout", ["rows", "features"])
+@pytest.mark.parametrize("F", [12, 16])
+def test_gather_kernel_matches_plain(dev, F, table_layout, out_layout):
+    # E = 2997 is no multiple of the kernel's 256-thread blocks; 111
+    # divides it.
+    table, gid = _gather_inputs(dev, F, table_layout)
+    block = 111 if out_layout == "blocked" else None
+    before = _build.launch_counts["gather_rows"]
+    got = gather_rows(table, gid, table_layout, out_layout, block)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["gather_rows"] == before + 1
+    want = gather_rows_plain(table, gid, table_layout, out_layout, block)
+    assert got.shape == want.shape
+    # Exact: every bit, not only every value.
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("table_layout", ["rows", "features"])
+def test_gather_kernel_clamps_ids(dev, table_layout):
+    """Ids outside [0, rows) read the nearest row, as XLA's gather does."""
+    table, gid = _gather_inputs(dev, 16, table_layout, rows=50, E=640)
+    gid[::7] = -3
+    gid[3::7] = 50 + 9
+    got = gather_rows(table, gid, table_layout, "entry")
+    want = gather_rows_plain(table, gid.clamp(0, 49), table_layout, "entry")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_gather_kernel_refuses_unaligned_width(dev):
+    table, gid = _gather_inputs(dev, 6, "rows")
+    with pytest.raises(ValueError):
+        gather_rows(table, gid)
