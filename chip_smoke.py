@@ -65,6 +65,17 @@ Builds the CUDA kernels from msgs_torch/csrc (into build/msgs_torch/), then:
      once (msgs_torch.tools.gather_bytes). The render path's
      gather_payload is timed on the host clock and its device time read
      from a profiler trace.
+ 10. mxu: the ported pair-math probe (msgs_torch.tools.exp_mxu) runs
+     in-process at its default, 14,336 blocks of 128 entries × a 16×16
+     tile; counters are zeroed just before and read just after, and the
+     probe kernel (csrc/mxu_probe.cu) must have run in each of the 12
+     runs. Each run's summed output is within its row budget of its plain
+     version (the script raises otherwise: 1e-5·max|row| at either
+     precision). Then, at 512 blocks, every variant and precision per
+     block against its plain version within the same budget, dfeat_nt's
+     df on a seeded nonzero g_rows (and its summed output); two launches
+     bit-identical; and pow_mxu's (block, pixel) cells that differ from
+     the plain version by a mask flip's size (MXU_FLIP_SIZE), counted.
 
 Any failed check raises, and the script exits non-zero without its result
 lines. On success the second-to-last lines are the nvidia-smi line and one
@@ -655,7 +666,8 @@ def phase_main_path(dev):
     bench_entries = int(out.num_entries)
     print(f"[serve] launches over {renders} renders: {counts}", flush=True)
     for k, v in counts.items():
-        check(v > 0 or k.startswith("composite_bwd") or k == "gather_rows",
+        check(v > 0 or k.startswith("composite_bwd")
+              or k in ("gather_rows", "mxu_probe"),
               f"kernel {k} never launched on the serving path")
     for mode in modes:
         print(f"[serve] {mode}: num_entries per camera {entries[mode]}, "
@@ -1172,6 +1184,92 @@ def phase_tools(dev, st, smi_line):
     return counts, rec
 
 
+# A (block, pixel) cell of pow_mxu that differs from its plain version by
+# more than this holds a flipped 1/255 mask: a flip moves a row by
+# feat·(1/255)·T, ≥ 1e-5 wherever feat·T ≥ 0.00255, where the rounding of
+# either precision moves it by < 2e-6 (PERF.md, the probe's per-run table).
+MXU_FLIP_SIZE = 1e-5
+
+
+def phase_mxu(dev, smi_line):
+    """The ported pair-math probe, then its kernel per block (see the
+    module docstring, item 10)."""
+    from msgs_torch.kernels import _build
+    from msgs_torch.kernels.mxu_probe import (NDF, NPIX, pair_block_probe,
+                                              pair_block_probe_plain)
+    from msgs_torch.tools import exp_mxu
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    runs = exp_mxu.main([])
+    torch.cuda.synchronize()
+    counts = dict(_build.launch_counts)
+    print(f"[mxu] launches over the 12 runs: {counts}", flush=True)
+    check(len(runs) == len(exp_mxu.RUNS), f"mxu: {len(runs)} runs")
+    for r in runs:
+        name = f"{r['variant']} ({r['precision']})"
+        check(r["launches"] > 0, f"mxu: {name}: the kernel never ran")
+        check(math.isfinite(r["ms"]) and r["max_abs_err"] <= r["budget"],
+              f"mxu: {name}: {r}")
+    check(counts["mxu_probe"] == sum(r["launches"] for r in runs),
+          "mxu: launches outside the runs")
+    print(f"[mxu] B={exp_mxu.DEFAULT_BLOCKS}: " + "; ".join(
+        f"{r['variant']} ({r['precision']}) {r['ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}), max|Δ| {r['max_abs_err']:.3e} of "
+        f"{r['budget']:.3e}" for r in runs) + f"; {smi_line}", flush=True)
+
+    # Per block at B = 512; dfeat_nt on a seeded nonzero g_rows.
+    pay = exp_mxu.make_payload(512, dev)
+    g = torch.as_tensor(np.random.default_rng(1).normal(
+        size=(NDF, NPIX)).astype(np.float32), device=dev)
+    per_block, flips = {}, {}
+    for variant, precision in sorted(set(exp_mxu.RUNS),
+                                     key=exp_mxu.RUNS.index):
+        kw = {"g_rows": g} if variant == "dfeat_nt" else {}
+        rel = exp_mxu.REL_BUDGET
+        name = f"{variant} ({precision})"
+        got = pair_block_probe(pay, variant, precision, per_block=True, **kw)
+        torch.cuda.synchronize()
+        want = pair_block_probe_plain(pay, variant, precision,
+                                      per_block=True, **kw)
+        dim = 2 if variant == "dfeat_nt" else 1
+        err, allow = exp_mxu.held_rows(f"mxu per block {name}", got, want,
+                                       rel, dim)
+        check(bool(want.abs().max() > 0), f"mxu: {name} per block is 0")
+        again = pair_block_probe(pay, variant, precision, per_block=True,
+                                 **kw)
+        check(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+              f"mxu: {name} per block is not deterministic")
+        if variant == "dfeat_nt":
+            exp_mxu.held_rows(f"mxu summed {name}",
+                              pair_block_probe(pay, variant, precision, **kw),
+                              pair_block_probe_plain(pay, variant, precision,
+                                                     **kw), rel, 0)
+        per_block[name] = [err, allow]
+        if variant == "pow_mxu":
+            flips[name] = int(((got - want).abs().amax(dim=1)
+                               > MXU_FLIP_SIZE).sum())
+    a = pair_block_probe(pay, "base")
+    b = pair_block_probe(pay, "base")
+    check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+          "mxu: two launches differ")
+    print("[mxu] per block at B=512 (max|Δ| of the largest row allowance): "
+          + "; ".join(f"{k} {e:.3e} of {lim:.3e}"
+                      for k, (e, lim) in per_block.items())
+          + f"; two launches bit-identical; pow_mxu (block, pixel) cells "
+          f"off by more than {MXU_FLIP_SIZE:g}: {flips}", flush=True)
+    del pay, a, b, got, want, again
+    torch.cuda.empty_cache()
+    base = runs[1]
+    rec = dict(ms=base["ms"], plain_ms=base["plain_ms"], library_ms=None,
+               bound_ms=base["bound_ms"], bound_by=base["bound_by"],
+               max_abs_err=max(r["max_abs_err"] for r in runs),
+               extra=dict(launches_mxu=counts["mxu_probe"], runs=runs,
+                          per_block_max_abs_err=per_block,
+                          pow_flip_cells_b512=flips))
+    return counts, rec
+
+
 def bench_scene(seed: int = 0):
     from msgs_torch.profile_render import bench_scene as scene
     return scene(seed)
@@ -1220,6 +1318,7 @@ def main():
 
     serve_counts, renders, _, st, cfg = phase_main_path(dev)
     tools_counts, gather_rec = phase_tools(dev, st, smi_line)
+    mxu_counts, mxu_rec = phase_mxu(dev, smi_line)
     train_counts, _ = phase_train(dev, st, cfg)
     del st
     phase_small_reference(dev)
@@ -1239,20 +1338,22 @@ def main():
         "gather_rows": ("msgs_torch/csrc/gather.cu",
                         "tools/exp_gather.py:72, :103, :131; "
                         "tools/exp_gather2.py:75, :106"),
+        "mxu_probe": ("msgs_torch/csrc/mxu_probe.cu", "tools/exp_mxu.py:209"),
     }
     kernel_recs = list(scans.items()) + [("composite_fwd", comp_rec),
                                          ("composite_bwd", bwd_rec),
                                          ("composite_bwd_bf16", bf16_rec),
-                                         ("gather_rows", gather_rec)]
+                                         ("gather_rows", gather_rec),
+                                         ("mxu_probe", mxu_rec)]
     for name, rec in kernel_recs:
         src, rep = meta[name]
-        # launches: over the four main-path runs, each counted from 0
-        # (serving renders, the gather tools, train_step calls, the
-        # trainer); then each run's.
+        # launches: over the five main-path runs, each counted from 0
+        # (serving renders, the gather tools, the pair-math probe,
+        # train_step calls, the trainer); then each run's.
         records.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": serve_counts[name] + tools_counts[name]
-            + train_counts[name] + trainer_counts[name],
+            + mxu_counts[name] + train_counts[name] + trainer_counts[name],
             "launches_trainer": trainer_counts[name],
             "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],

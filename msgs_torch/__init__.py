@@ -12,7 +12,8 @@ reference this package is held against (tests/test_torch_*.py):
   eval/     L1, SSIM, PSNR
   data/     PLY I/O (numpy)
   train/    train_step, per-group Adam, render entry points, PLY snapshots
-  tools/    experiment scripts (the row-gather layouts), run with -m
+  tools/    experiment scripts (the row-gather layouts, the pair-math
+            formulations), run with -m
 
 Entry points take `device=None`, meaning the CUDA device; they raise when no
 GPU is present and run on the CPU only when the caller passes
@@ -30,6 +31,15 @@ __version__ = "0.1.0"
 # covariance products and SH evaluation.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+# torch's CPU exp is MKL's vector exp, called by each OpenMP thread on its
+# share. The first such call of a process has come out with ~13-bit
+# accuracy in one thread's whole share (13 of 320 fresh processes at 32
+# threads); after a first call on the calling thread alone, below torch's
+# parallel grain, it has not (0 of 320; tests/test_torch_mxu.py, the
+# program of test_first_cpu_exp_after_import_is_right without and with
+# this import). So the package makes that call here.
+torch.exp(torch.zeros(1024))
 
 
 def resolve_device(device=None) -> torch.device:

@@ -17,10 +17,11 @@ so the host never waits on the card each step; ground-truth images are
 cached on the device per (view, scale).
 
 Beyond the JAX flags: `--device` (default: the CUDA device). Not ported:
-`--mesh`, `--packet_cap` and `--multihost` (sharded training, ROADMAP.md
-item 15) raise; the network GUI is not ported, and without `--disable_gui`
-the trainer says so and carries on; LPIPS at the final evaluation is
-skipped (ROADMAP.md item 14), as the JAX trainer skips it without weights.
+`--mesh`, `--packet_cap` and `--multihost` (sharded training, ROADMAP.md,
+`msgs/dist/`) raise; the network GUI is not ported, and without
+`--disable_gui` the trainer says so and carries on; LPIPS at the final
+evaluation is skipped (ROADMAP.md, `msgs/eval/lpips_jax.py`), as the JAX
+trainer skips it without weights.
 `--profile_steps A:B` traces iterations [A, B) with torch.profiler into
 <model_path>/profile/; `--detect_anomaly` turns on
 torch.autograd.set_detect_anomaly.
@@ -107,13 +108,14 @@ def build_parser():
                         "torch.profiler into <model_path>/profile/")
     p.add_argument("--mesh", nargs=2, type=int, default=None,
                    metavar=("GAUSS", "TILE"),
-                   help="sharded training (not ported: ROADMAP.md item 15)")
+                   help="sharded training (not ported: ROADMAP.md, "
+                        "msgs/dist/)")
     p.add_argument("--packet_cap", type=int, default=0,
-                   help="sharded exchange rows (not ported: ROADMAP.md "
-                        "item 15)")
+                   help="sharded exchange rows (not ported: ROADMAP.md, "
+                        "msgs/dist/)")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-host training (not ported: ROADMAP.md "
-                        "item 15)")
+                   help="multi-host training (not ported: ROADMAP.md, "
+                        "msgs/dist/)")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the CUDA device)")
     return p
@@ -147,7 +149,7 @@ def training(args, on_iteration=None):
         if getattr(args, flag):
             raise NotImplementedError(
                 f"msgs_torch train: --{flag} (sharded / multi-host "
-                f"training) is not ported yet (ROADMAP.md item 15)")
+                f"training) is not ported yet (ROADMAP.md, msgs/dist/)")
     if args.source_path_short:
         args.source_path = args.source_path_short
     if args.model_path_short:

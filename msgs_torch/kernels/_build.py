@@ -33,7 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # name → number of launches of that kernel in this process
 launch_counts = {"scan_f32": 0, "scan_i32": 0, "composite_fwd": 0,
                  "composite_bwd": 0, "composite_bwd_bf16": 0,
-                 "gather_rows": 0}
+                 "gather_rows": 0, "mxu_probe": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -51,6 +51,9 @@ _SIGNATURES = {
     # (table, gid, out, rows, F, E, feat_table, block, stream)
     "msgs_gather_rows": [_P, _P, _P, ctypes.c_longlong, _I,
                          ctypes.c_longlong, _I, ctypes.c_longlong, _P],
+    # (payload, g_rows, out, df_out, partial, B, variant, high, per_block,
+    #  stream)
+    "msgs_mxu_probe": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -1,9 +1,10 @@
 """Experiment scripts of the port: the counterparts of the JAX package's
 tools/exp_*.py, run as `python -m msgs_torch.tools.<name>`.
 
-Shared here: the command line (`[N] [E] [--device cpu]`), the timing (CUDA
-events on the card, the host clock on the CPU), the exact check every
-gather variant is held to and the bytes a gather must move.
+Shared here: the timing (CUDA events on the card, the host clock on the
+CPU) and the device's name; for the gather scripts, their command line
+(`[N] [E] [--device cpu]`), the exact check every gather variant is held
+to and the bytes a gather must move.
 """
 from __future__ import annotations
 

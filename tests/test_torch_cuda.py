@@ -15,6 +15,10 @@ from msgs_torch.kernels import _build
 from msgs_torch.kernels import composite as comp
 from msgs_torch.kernels import scan
 from msgs_torch.kernels.gather import gather_rows, gather_rows_plain
+from msgs_torch.kernels.mxu_probe import (NDF, NPIX, pair_block_probe,
+                                          pair_block_probe_plain)
+from msgs_torch.tools.exp_mxu import REL_BUDGET, RUNS, held_rows, \
+    make_payload
 from msgs_torch.kernels.binning import bin_gaussians
 from msgs_torch.kernels.preprocess import preprocess
 from msgs_torch.kernels.rasterize import RasterSettings, gather_payload, \
@@ -256,3 +260,61 @@ def test_gather_kernel_refuses_unaligned_width(dev):
     table, gid = _gather_inputs(dev, 6, "rows")
     with pytest.raises(ValueError):
         gather_rows(table, gid)
+
+
+# The JAX script's 11 distinct (variant, precision) pairs.
+_MXU_RUNS = sorted(set(RUNS), key=RUNS.index)
+
+
+def _g_rows(dev):
+    rng = np.random.default_rng(1)
+    return torch.tensor(rng.normal(size=(NDF, NPIX)).astype(np.float32),
+                        device=dev)
+
+
+@pytest.mark.parametrize("per_block", [False, True])
+@pytest.mark.parametrize("variant,precision", _MXU_RUNS)
+def test_mxu_probe_kernel_matches_plain(dev, variant, precision, per_block):
+    """Every formulation at both precisions, summed and per block, within
+    the tool's row budget; dfeat_nt on a nonzero g_rows (per block: its
+    df)."""
+    pay = make_payload(64, dev)
+    kw = {"g_rows": _g_rows(dev)} if variant == "dfeat_nt" else {}
+    before = _build.launch_counts["mxu_probe"]
+    got = pair_block_probe(pay, variant, precision, per_block=per_block,
+                           **kw)
+    torch.cuda.synchronize()
+    # The probe kernel, and for the summed output the sum of its partials.
+    assert _build.launch_counts["mxu_probe"] == before + (1 if per_block
+                                                          else 2)
+    want = pair_block_probe_plain(pay, variant, precision,
+                                  per_block=per_block, **kw)
+    dim = (2 if variant == "dfeat_nt" else 1) if per_block else 0
+    held_rows(f"{variant} ({precision})", got, want, REL_BUDGET, dim)
+    assert want.abs().max() > 0
+
+
+@pytest.mark.parametrize("variant,precision", _MXU_RUNS)
+def test_mxu_probe_kernel_ragged_grid(dev, variant, precision):
+    """B = 61 leaves the last CTA 5 of its 8 blocks; dfeat_nt on zero
+    g_rows is 0, as in the JAX script."""
+    pay = make_payload(61, dev)
+    got = pair_block_probe(pay, variant, precision)
+    want = pair_block_probe_plain(pay, variant, precision)
+    torch.cuda.synchronize()
+    held_rows(variant, got, want, REL_BUDGET, 0)
+    if variant == "dfeat_nt":
+        assert not got.any()
+
+
+def test_mxu_probe_kernel_is_deterministic(dev):
+    pay = make_payload(300, dev)
+    for variant, precision in (("base", None), ("scan_mxu", "HIGH"),
+                               ("acc_tn", "HIGH")):
+        a = pair_block_probe(pay, variant, precision)
+        b = pair_block_probe(pay, variant, precision)
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    g = _g_rows(dev)
+    a = pair_block_probe(pay, "dfeat_nt", "HIGH", g_rows=g)
+    b = pair_block_probe(pay, "dfeat_nt", "HIGH", g_rows=g)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
