@@ -76,6 +76,19 @@ Builds the CUDA kernels from msgs_torch/csrc (into build/msgs_torch/), then:
      df on a seeded nonzero g_rows (and its summed output); two launches
      bit-identical; and pow_mxu's (block, pixel) cells that differ from
      the plain version by a mask flip's size (MXU_FLIP_SIZE), counted.
+ 11. ablate: the ported compositor ablations (msgs_torch.tools.
+     exp_fwd_ablate) run in-process in `all` mode at the script's stream
+     (the bench scene at entry_cap 1,572,864, 14,336 blocks); counters
+     are zeroed just before and read just after, and both ablation kernels
+     (csrc/fwd_ablate.cu, csrc/bwd_ablate.cu) must have run in each of
+     the 15 variants, each within the tool's budgets of its plain version
+     (the tool raises otherwise). On that whole stream fwd/full at each
+     tile's last sub must equal composite_fwd.cu's output and bwd/full's
+     r g b columns composite_bwd.cu's image-only ones, bit for bit. Then
+     every variant against its plain version, written slots equal and
+     values within the budgets, on the clustered check stream
+     (exp_fwd_ablate.clustered_stream: skips and boundary crossings), the
+     256×200 scene and the first 512 blocks of the script's stream.
 
 Any failed check raises, and the script exits non-zero without its result
 lines. On success the second-to-last lines are the nvidia-smi line and one
@@ -667,7 +680,8 @@ def phase_main_path(dev):
     print(f"[serve] launches over {renders} renders: {counts}", flush=True)
     for k, v in counts.items():
         check(v > 0 or k.startswith("composite_bwd")
-              or k in ("gather_rows", "mxu_probe"),
+              or k in ("gather_rows", "mxu_probe", "fwd_ablate",
+                       "bwd_ablate"),
               f"kernel {k} never launched on the serving path")
     for mode in modes:
         print(f"[serve] {mode}: num_entries per camera {entries[mode]}, "
@@ -1270,6 +1284,129 @@ def phase_mxu(dev, smi_line):
     return counts, rec
 
 
+def ablate_held(label, stream, width, height):
+    """Every forward and backward ablation variant against its plain
+    version on one stream: written slots equal, values within the tool's
+    budgets. Returns {variant: [max|Δ|, bit-exact]}."""
+    from msgs_torch.kernels import ablate
+    from msgs_torch.kernels import composite as comp
+    from msgs_torch.tools import exp_fwd_ablate as tool
+    payload, st, sv, tls = stream
+    tx = (width + 15) // 16
+    tiles = ablate.n_tiles(tx, height)
+    out = {}
+    for v in ablate.FWD_VARIANTS:
+        got, written = ablate.fwd_ablate(payload, st, sv, v, tx, width,
+                                         height)
+        torch.cuda.synchronize()
+        want, want_w = ablate.fwd_ablate_plain(payload, st, sv, v, tx,
+                                               width, height)
+        check(torch.equal(written, want_w),
+              f"ablate {label} fwd/{v}: written slots differ")
+        tols = tool.FWD_TOL if v in ablate.TILE_VARIANTS else tool.REL_BUDGET
+        out[f"fwd/{v}"] = list(tool.held(f"ablate {label} fwd/{v}",
+                                         got[written], want[written], tols))
+    res = comp.composite(payload, st, sv, tls, tiles, tx, width, height)
+    cst = tool.make_cst(res)
+    for v in ablate.BWD_VARIANTS:
+        got = ablate.bwd_ablate(payload, st, sv, cst, v, tx, width, height)
+        torch.cuda.synchronize()
+        want = ablate.bwd_ablate_plain(payload, st, sv, cst, v, tx, width,
+                                       height)
+        g2, w2 = got.reshape(-1, comp.NFEAT), want.reshape(-1, comp.NFEAT)
+        out[f"bwd/{v}"] = list(tool.held(f"ablate {label} bwd/{v}", g2, w2,
+                                         tool.grad_tols(w2)))
+    print(f"[ablate] {label}: every variant within budget of its plain "
+          f"version; not bit-exact: "
+          f"{[k for k, (_, exact) in out.items() if not exact]}", flush=True)
+    return out
+
+
+def phase_ablate(dev, small, smi_line):
+    """The ported compositor ablations (see the module docstring, item
+    11)."""
+    from msgs_torch.kernels import _build, ablate
+    from msgs_torch.kernels import composite as comp
+    from msgs_torch.tools import exp_fwd_ablate as tool
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    runs = tool.main(["all"])
+    torch.cuda.synchronize()
+    counts = dict(_build.launch_counts)
+    t_tool = time.perf_counter() - t0
+    print(f"[ablate] launches over the 15 variants: {counts}", flush=True)
+    check(len(runs) == len(ablate.FWD_VARIANTS) + len(ablate.BWD_VARIANTS),
+          f"ablate: {len(runs)} runs")
+    for r in runs:
+        check(r["launches"] > 0 and math.isfinite(r["ms"]),
+              f"ablate: {r['name']}: {r}")
+    for name in ("fwd_ablate", "bwd_ablate"):
+        check(counts[name] == sum(r["launches"] for r in runs
+                                  if r["name"][:3] == name[:3]),
+              f"ablate: {name} launches outside the runs")
+    print(f"[ablate] {tool.W}x{tool.H}, entry_cap {tool.ENTRY_CAP}: " + "; ".join(
+        f"{r['name']} {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']}; {r['pairs']} pairs, "
+        f"{r['bytes']} bytes), max|Δ| {r['max_abs_err']:.3e}"
+        f"{' exact' if r['exact'] else ''}" for r in runs)
+        + f"; {smi_line}", flush=True)
+
+    # Kernels 3 and 4 on the whole stream, against fwd/full and bwd/full.
+    payload, st, sv, tls = tool.make_stream(dev)
+    tx = (tool.W + 15) // 16
+    tiles = ablate.n_tiles(tx, tool.H)
+    first, n_sub = comp.tile_sub_ranges(st, sv, tls, tiles)
+    k3 = comp._composite_cuda(payload, first, n_sub, tiles, tx, tool.W,
+                              tool.H)
+    full, written = ablate.fwd_ablate(payload, st, sv, "full", tx, tool.W,
+                                      tool.H)
+    used = (n_sub > 0).nonzero()[:, 0]
+    check(bool(written[tls[used].long()].all())
+          and torch.equal(full[tls[used].long()], k3[used]),
+          "ablate: fwd/full at tile_last_sub differs from composite_fwd")
+    cot = torch.full_like(k3, tool.COT)
+    k4 = comp._composite_bwd_cuda(payload, first, n_sub, k3, cot, tiles, tx,
+                                  tool.W, tool.H, True)
+    dpay = ablate.bwd_ablate(payload, st, sv, tool.make_cst(k3), "full", tx,
+                             tool.W, tool.H)
+    colour = slice(comp.F_R, comp.F_B + 1)
+    check(torch.equal(dpay[..., colour], k4[..., colour]),
+          "ablate: bwd/full's colour columns differ from composite_bwd")
+    print(f"[ablate] whole stream ({payload.shape[0]} blocks, "
+          f"{int(used.numel())} tiles): fwd/full at tile_last_sub equals "
+          f"composite_fwd and bwd/full's r g b columns composite_bwd "
+          f"(image_only) bit for bit", flush=True)
+    del payload, st, sv, k3, k4, full, dpay
+    torch.cuda.empty_cache()
+
+    held = {
+        "clustered 1920x1080, 16 blocks": ablate_held(
+            "clustered", tool.clustered_stream(dev, 16), tool.W, tool.H),
+        "256x200 scene": ablate_held(
+            "256x200", tool.scene_stream(dev, small, 256, 200, 1 << 17),
+            256, 200),
+        "1920x1080 first 512 blocks": ablate_held(
+            "1080p/512", tool.make_stream(dev, 512), tool.W, tool.H),
+    }
+    torch.cuda.empty_cache()
+    print(f"[ablate] {time.perf_counter() - t0:.1f} s (the tool "
+          f"{t_tool:.1f} s)", flush=True)
+    recs = {}
+    for name, prefix in (("fwd_ablate", "fwd/"), ("bwd_ablate", "bwd/")):
+        mine = [r for r in runs if r["name"].startswith(prefix)]
+        full_run = mine[0]
+        recs[name] = dict(
+            ms=full_run["ms"], plain_ms=full_run["plain_ms"],
+            library_ms=None, bound_ms=full_run["bound_ms"],
+            bound_by=full_run["bound_by"],
+            max_abs_err=max(r["max_abs_err"] for r in mine),
+            extra=dict(runs=mine, held={k: {v: e for v, e in h.items()
+                                            if v.startswith(prefix)}
+                                        for k, h in held.items()}))
+    return counts, recs
+
+
 def bench_scene(seed: int = 0):
     from msgs_torch.profile_render import bench_scene as scene
     return scene(seed)
@@ -1319,6 +1456,7 @@ def main():
     serve_counts, renders, _, st, cfg = phase_main_path(dev)
     tools_counts, gather_rec = phase_tools(dev, st, smi_line)
     mxu_counts, mxu_rec = phase_mxu(dev, smi_line)
+    ablate_counts, ablate_recs = phase_ablate(dev, small, smi_line)
     train_counts, _ = phase_train(dev, st, cfg)
     del st
     phase_small_reference(dev)
@@ -1339,21 +1477,30 @@ def main():
                         "tools/exp_gather.py:72, :103, :131; "
                         "tools/exp_gather2.py:75, :106"),
         "mxu_probe": ("msgs_torch/csrc/mxu_probe.cu", "tools/exp_mxu.py:209"),
+        "fwd_ablate": ("msgs_torch/csrc/fwd_ablate.cu",
+                       "tools/exp_fwd_ablate.py:216 (fwd_kernel_var :97)"),
+        "bwd_ablate": ("msgs_torch/csrc/bwd_ablate.cu",
+                       "tools/exp_fwd_ablate.py:428 (bwd_var :268)"),
     }
     kernel_recs = list(scans.items()) + [("composite_fwd", comp_rec),
                                          ("composite_bwd", bwd_rec),
                                          ("composite_bwd_bf16", bf16_rec),
                                          ("gather_rows", gather_rec),
-                                         ("mxu_probe", mxu_rec)]
+                                         ("mxu_probe", mxu_rec),
+                                         ("fwd_ablate",
+                                          ablate_recs["fwd_ablate"]),
+                                         ("bwd_ablate",
+                                          ablate_recs["bwd_ablate"])]
     for name, rec in kernel_recs:
         src, rep = meta[name]
-        # launches: over the five main-path runs, each counted from 0
-        # (serving renders, the gather tools, the pair-math probe,
-        # train_step calls, the trainer); then each run's.
+        # launches: over the six main-path runs, each counted from 0
+        # (serving renders, the gather tools, the pair-math probe, the
+        # ablations, train_step calls, the trainer); then each run's.
         records.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": serve_counts[name] + tools_counts[name]
-            + mxu_counts[name] + train_counts[name] + trainer_counts[name],
+            + mxu_counts[name] + ablate_counts[name] + train_counts[name]
+            + trainer_counts[name],
             "launches_trainer": trainer_counts[name],
             "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
@@ -1361,7 +1508,8 @@ def main():
             "library_ms": rec["library_ms"],
             "launches_train_step": train_counts[name],
             "launches_serving": serve_counts[name],
-            "launches_tools": tools_counts[name], **rec.get("extra", {})})
+            "launches_tools": tools_counts[name],
+            "launches_ablate": ablate_counts[name], **rec.get("extra", {})})
     print(f"[done] {time.perf_counter() - t_start:.1f} s; "
           f"{renders} serving renders, {STEPS} training steps, "
           f"{TRAIN_ITERS} trainer iterations", flush=True)

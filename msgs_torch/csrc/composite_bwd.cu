@@ -53,32 +53,6 @@ using namespace msgs_composite;
 constexpr int kWarps = kPix / 32;
 constexpr int kMom = 6;               // pixel-monomial moments
 
-// One round of the transposed butterfly: a lane keeps the half of its
-// partial vector that bit HALF of its lane selects and sends the other
-// half to the lane across that bit. HALF is a template constant so every
-// index is one and v stays in registers.
-template <int HALF>
-__device__ __forceinline__ void butterfly_round(float (&v)[kSub], int lane) {
-  const bool upper = (lane & HALF) != 0;
-#pragma unroll
-  for (int j = 0; j < HALF; ++j) {
-    const float send = upper ? v[j] : v[j + HALF];
-    const float keep = upper ? v[j + HALF] : v[j];
-    v[j] = keep + __shfl_xor_sync(0xffffffffu, send, HALF);
-  }
-}
-
-// Lane l returns the sum over the warp's 32 lanes of v[l] (31 shuffles).
-__device__ __forceinline__ float warp_transpose_sum(float (&v)[kSub]) {
-  const int lane = threadIdx.x & 31;
-  butterfly_round<16>(v, lane);
-  butterfly_round<8>(v, lane);
-  butterfly_round<4>(v, lane);
-  butterfly_round<2>(v, lane);
-  butterfly_round<1>(v, lane);
-  return v[0];
-}
-
 template <int NF>
 __global__ void __launch_bounds__(kPix)
 composite_bwd_kernel(const float* __restrict__ payload,

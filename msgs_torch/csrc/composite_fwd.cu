@@ -50,7 +50,6 @@ composite_fwd_kernel(const float* __restrict__ payload,
                      float* __restrict__ out,
                      int tiles_x, int width, int height) {
   __shared__ float sp[kSub * kFeat];
-  const float kTEps = t_eps();
 
   const int tile = blockIdx.x;
   const int p = threadIdx.x;
@@ -71,33 +70,10 @@ composite_fwd_kernel(const float* __restrict__ payload,
     for (int i = p; i < kSub * kFeat; i += kPix) sp[i] = src[i];
     __syncthreads();
 
-    float al[kSub], cu[kSub];
-#pragma unroll
-    for (int i = 0; i < kSub; ++i) {
-      float araw;
-      al[i] = splat_alpha(sp + i * kFeat, ox, oy, pxl, pyl, araw);
-      cu[i] = 1.0f - al[i];
-    }
-    hs_prefix_product(cu);
-
-    const float t_in = T;
-    const float not_done = 1.0f - done;
-    float loc[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-    float tmin = INFINITY;
-#pragma unroll
-    for (int i = 0; i < kSub; ++i) {
-      const float ce = i == 0 ? 1.0f : cu[i - 1];
-      const float ta = t_in * cu[i];
-      const float alive = (ta >= kTEps ? 1.0f : 0.0f) * not_done;
-      const float w = al[i] * t_in * ce * alive;
-#pragma unroll
-      for (int c = 0; c < 5; ++c) loc[c] = loc[c] + sp[i * kFeat + F_R + c] * w;
-      tmin = fminf(tmin, alive > 0.0f ? ta : t_in);
-    }
+    float loc[5];
+    composite_sub(sp, ox, oy, pxl, pyl, T, done, loc);
 #pragma unroll
     for (int c = 0; c < 5; ++c) acc[c] = acc[c] + loc[c];
-    T = tmin;
-    done = fmaxf(done, (t_in * cu[kSub - 1]) < kTEps ? 1.0f : 0.0f);
 
     // Also the barrier before the next sub-block overwrites sp.
     if (__syncthreads_and(done != 0.0f)) break;

@@ -33,7 +33,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # name → number of launches of that kernel in this process
 launch_counts = {"scan_f32": 0, "scan_i32": 0, "composite_fwd": 0,
                  "composite_bwd": 0, "composite_bwd_bf16": 0,
-                 "gather_rows": 0, "mxu_probe": 0}
+                 "gather_rows": 0, "mxu_probe": 0, "fwd_ablate": 0,
+                 "bwd_ablate": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,6 +55,12 @@ _SIGNATURES = {
     # (payload, g_rows, out, df_out, partial, B, variant, high, per_block,
     #  stream)
     "msgs_mxu_probe": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # (payload, sub_tile, sub_valid, out, written, partial, n_blocks,
+    #  variant, tiles, tiles_x, width, height, stream)
+    "msgs_fwd_ablate": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # (payload, sub_tile, sub_valid, cst, dpay, n_blocks, variant, tiles,
+    #  tiles_x, width, height, stream)
+    "msgs_bwd_ablate": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -12,11 +12,13 @@ import torch
 
 from msgs_torch.core.camera import make_camera
 from msgs_torch.kernels import _build
+from msgs_torch.kernels import ablate
 from msgs_torch.kernels import composite as comp
 from msgs_torch.kernels import scan
 from msgs_torch.kernels.gather import gather_rows, gather_rows_plain
 from msgs_torch.kernels.mxu_probe import (NDF, NPIX, pair_block_probe,
                                           pair_block_probe_plain)
+from msgs_torch.tools import exp_fwd_ablate
 from msgs_torch.tools.exp_mxu import REL_BUDGET, RUNS, held_rows, \
     make_payload
 from msgs_torch.kernels.binning import bin_gaussians
@@ -318,3 +320,91 @@ def test_mxu_probe_kernel_is_deterministic(dev):
     a = pair_block_probe(pay, "dfeat_nt", "HIGH", g_rows=g)
     b = pair_block_probe(pay, "dfeat_nt", "HIGH", g_rows=g)
     assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+# The ablation kernels (csrc/fwd_ablate.cu, csrc/bwd_ablate.cu): every sum
+# runs in the plain version's order and the build has -fmad=false, so each
+# variant equals its plain version bit for bit (torch.equal: up to the sign
+# of a zero), the bf16 moments included (their products are exact in f32).
+_AW, _AH, _ATX = exp_fwd_ablate.W, exp_fwd_ablate.H, 120
+
+
+def _ablate_stream(dev):
+    """The clustered check stream, 16 blocks: skips, boundary crossings."""
+    return exp_fwd_ablate.clustered_stream(dev, 16)
+
+
+def _pairs_stream(dev, n_blocks=16, seed=5):
+    """A seeded payload whose means lie in tile 0, where the pairs
+    variants (tile-local pixels, no tile origin) see their splats; the
+    last block does not compute."""
+    rng = np.random.default_rng(seed)
+    pay = np.zeros((n_blocks, 128, 12), np.float32)
+    pay[..., 0:2] = rng.uniform(0, 16, (n_blocks, 128, 2))
+    pay[..., 2] = rng.uniform(0.02, 0.4, (n_blocks, 128))
+    pay[..., 3] = rng.uniform(-0.01, 0.01, (n_blocks, 128))
+    pay[..., 4] = rng.uniform(0.02, 0.4, (n_blocks, 128))
+    pay[..., 5] = rng.uniform(0.1, 0.99, (n_blocks, 128))
+    pay[..., 6:11] = rng.uniform(0, 1, (n_blocks, 128, 5))
+    st = np.sort(rng.integers(0, 40, 4 * n_blocks)).astype(np.int32)
+    sv = (np.arange(4 * n_blocks) < 4 * (n_blocks - 1) - 2).astype(np.int32)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    return t(pay), t(st), t(sv)
+
+
+@pytest.mark.parametrize("variant", ablate.FWD_VARIANTS)
+def test_fwd_ablate_kernel_matches_plain(dev, variant):
+    streams = [_ablate_stream(dev)[:3]]
+    if variant.startswith("pairs") or variant == "no_states":
+        streams.append(_pairs_stream(dev))
+    for pay, st, sv in streams:
+        before = _build.launch_counts["fwd_ablate"]
+        got, written = ablate.fwd_ablate(pay, st, sv, variant, _ATX, _AW,
+                                         _AH)
+        torch.cuda.synchronize()
+        assert _build.launch_counts["fwd_ablate"] == before + (
+            1 if variant in ablate.TILE_VARIANTS else 2)
+        want, want_written = ablate.fwd_ablate_plain(pay, st, sv, variant,
+                                                     _ATX, _AW, _AH)
+        assert torch.equal(written, want_written), variant
+        assert torch.equal(got, want), (variant, float(
+            (got - want).abs().max()))
+        if variant != "no_dump":
+            assert want[written][:, :5].abs().max() > 0
+
+
+@pytest.mark.parametrize("variant", ablate.BWD_VARIANTS)
+def test_bwd_ablate_kernel_matches_plain(dev, variant):
+    pay, st, sv, tls = _ablate_stream(dev)
+    tiles = ablate.n_tiles(_ATX, _AH)
+    res = comp.composite(pay, st, sv, tls, tiles, _ATX, _AW, _AH)
+    cst = exp_fwd_ablate.make_cst(res)
+    got = ablate.bwd_ablate(pay, st, sv, cst, variant, _ATX, _AW, _AH)
+    torch.cuda.synchronize()
+    want = ablate.bwd_ablate_plain(pay, st, sv, cst, variant, _ATX, _AW,
+                                   _AH)
+    assert torch.equal(got, want), (variant, float(
+        (got - want).abs().max()))
+    assert want.abs().max() > 0
+    again = ablate.bwd_ablate(pay, st, sv, cst, variant, _ATX, _AW, _AH)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+def test_ablate_full_equals_kernels_3_and_4(dev):
+    """fwd/full at each tile's last sub is composite_fwd.cu's output, and
+    bwd/full's colour columns composite_bwd.cu's image-only ones, bit for
+    bit (the same per-sub arithmetic and pixel-sum order)."""
+    pay, st, sv, tls = _ablate_stream(dev)
+    tiles = ablate.n_tiles(_ATX, _AH)
+    first, n_sub = comp.tile_sub_ranges(st, sv, tls, tiles)
+    k3 = comp._composite_cuda(pay, first, n_sub, tiles, _ATX, _AW, _AH)
+    out, written = ablate.fwd_ablate(pay, st, sv, "full", _ATX, _AW, _AH)
+    used = (n_sub > 0).nonzero()[:, 0]
+    assert written[tls[used].long()].all()
+    assert torch.equal(out[tls[used].long()], k3[used])
+    cot = torch.full_like(k3, 0.1)
+    k4 = comp._composite_bwd_cuda(pay, first, n_sub, k3, cot, tiles, _ATX,
+                                  _AW, _AH, True)
+    dpay = ablate.bwd_ablate(pay, st, sv, exp_fwd_ablate.make_cst(k3),
+                             "full", _ATX, _AW, _AH)
+    assert torch.equal(dpay[..., 6:9], k4[..., 6:9])
