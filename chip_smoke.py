@@ -89,6 +89,20 @@ Builds the CUDA kernels from msgs_torch/csrc (into build/msgs_torch/), then:
      values within the budgets, on the clustered check stream
      (exp_fwd_ablate.clustered_stream: skips and boundary crossings), the
      256×200 scene and the first 512 blocks of the script's stream.
+ 12. bwd2: the ported follow-up experiments (msgs_torch.tools.exp_bwd2
+     and exp_bwd3) run in-process at the same stream, nothing cut;
+     counters are zeroed just before each script and read just after, and
+     fwd/horner (the `horner` instance of csrc/fwd_ablate.cu) and every
+     backward form (csrc/bwd_ablate.cu) must have run. Every run equals its
+     plain version bit for bit (up to the sign of a zero), and fwd/horner's
+     running sum is nonzero. On that whole stream every backward form is
+     held against composite_bwd.cu's image-only backward under a cotangent
+     of 0.1 with its depth and acc rows 0 (the constant rows' total_phi is
+     over r g b): the colour columns bit for bit, the vpu forms' geometry
+     columns bit for bit (predicted; failing that, within the gradient
+     budget, and the miss is printed), the dot_f32 forms' within 3e-5·max
+     |column| + 1e-6. Then every run against its plain version, bit for
+     bit, on the three check streams of [ablate].
 
 Any failed check raises, and the script exits non-zero without its result
 lines. On success the second-to-last lines are the nvidia-smi line and one
@@ -127,9 +141,11 @@ OPS_PER_PAIR = 46
 # composite_bwd.cu recomputes the forward's 46 and adds, per pair, with NF
 # colour columns (5, or 3 under image_only): 2·NF−1 for φ, 3 for T_i, T_i·φ
 # and w·φ, ~4 for the w·φ prefix (129 adds per 32 entries), 9 for dα and
-# dpower, 8 for the moment terms, NF for w·g_c, and one add per reduced
-# quantity (6 + NF) for the butterfly (31 adds per 32 entries × 32 pixels).
-OPS_PER_PAIR_BWD = {nf: OPS_PER_PAIR + (2 * nf - 1) + 3 + 4 + 9 + 8 + nf
+# dpower, 5 for the moment terms (dp·x and dp·y, then dp·x·x, dp·x·y and
+# dp·y·y), NF for w·g_c, and one add per reduced quantity (6 + NF) for the butterfly (31
+# adds per 32 entries × 32 pixels). The same count as
+# msgs_torch/tools/exp_fwd_ablate.py bwd_ops.
+OPS_PER_PAIR_BWD = {nf: OPS_PER_PAIR + (2 * nf - 1) + 3 + 4 + 9 + 5 + nf
                     + 6 + nf for nf in (3, 5)}
 STEPS = 20                    # full-width train steps
 PEAK_BF16 = 989e12            # dense bf16 tensor-core FLOP/s
@@ -218,9 +234,20 @@ def phase_build():
     info = _build.build_info
     print(f"[build] {dt:.2f} s ({'built' if info['built'] else 'cached'}) "
           f"{info['path']}", flush=True)
+    # One line per kernel: its mangled name (template arguments as
+    # ptxas gives them), registers, stack and spills (ptxas -v).
+    name = stack = None
     for line in info.get("log", "").splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if line.startswith("=="):
             print(f"[build]   {line.strip()}")
+        elif "Function properties for" in line:
+            name = line.split("for", 1)[1].strip()
+        elif "stack frame" in line:
+            stack = line.strip()
+        elif "registers" in line and name:
+            print(f"[build]   {name}: "
+                  f"{line.split(':', 1)[1].strip()}; {stack}")
+            name = None
 
 
 def scan_record(name, dtype, shapes, dev):
@@ -1407,6 +1434,161 @@ def phase_ablate(dev, small, smi_line):
     return counts, recs
 
 
+def bwd2_held(label, stream, width, height):
+    """fwd/horner and every backward form of both scripts against their
+    plain versions on one stream, bit for bit; a form that zeroes in the
+    kernel writes over NaN. Returns {run: max|Δ|}."""
+    from msgs_torch.kernels import ablate
+    from msgs_torch.kernels import composite as comp
+    from msgs_torch.tools import exp_bwd2
+    from msgs_torch.tools import exp_fwd_ablate as tool
+    payload, st, sv, tls = stream
+    tx = (width + 15) // 16
+    out = {}
+    got, written = ablate.fwd_ablate(payload, st, sv, "horner", tx, width,
+                                     height)
+    torch.cuda.synchronize()
+    want, want_w = ablate.fwd_ablate_plain(payload, st, sv, "horner", tx,
+                                           width, height)
+    check(torch.equal(written, want_w) and torch.equal(got, want),
+          f"bwd2 {label} fwd/horner differs from its plain version")
+    out["fwd/horner"] = float((got - want).abs().max())
+    res = comp.composite(payload, st, sv, tls, ablate.n_tiles(tx, height),
+                         tx, width, height)
+    cst = tool.make_cst(res)
+    for run, form in exp_bwd2.BWD_RUNS.items():
+        c = ablate.dense_cst(cst, st) if form.constants == "dense" else cst
+        buf = (torch.full_like(payload, float("nan"))
+               if form.zeroing == "kernel" else None)
+        got = ablate.bwd_ablate(payload, st, sv, c, "full", tx, width,
+                                height, out=buf, form=form)
+        torch.cuda.synchronize()
+        want = ablate.bwd_ablate_plain(payload, st, sv, c, "full", tx, width,
+                                       height, form=form)
+        check(torch.equal(got, want),
+              f"bwd2 {label} {run}: differs from its plain version (max|Δ| "
+              f"{float((got - want).abs().max())})")
+        out[run] = float((got - want).abs().max())
+    print(f"[bwd2] {label}: fwd/horner and the {len(out) - 1} backward "
+          f"forms equal their plain versions bit for bit", flush=True)
+    return out
+
+
+def phase_bwd2(dev, small, smi_line):
+    """The ported follow-up experiments (see the module docstring, item
+    12)."""
+    from msgs_torch.kernels import _build, ablate
+    from msgs_torch.kernels import composite as comp
+    from msgs_torch.tools import exp_bwd2, exp_bwd3
+    from msgs_torch.tools import exp_fwd_ablate as tool
+    t0 = time.perf_counter()
+    runs, counts = {}, {}
+    for script, mod in (("exp_bwd2", exp_bwd2), ("exp_bwd3", exp_bwd3)):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        runs[script] = mod.main([])
+        torch.cuda.synchronize()
+        counts[script] = dict(_build.launch_counts)
+        print(f"[bwd2] {script} launches: {counts[script]}", flush=True)
+    t_tools = time.perf_counter() - t0
+    check([r["name"] for r in runs["exp_bwd2"] + runs["exp_bwd3"]]
+          == ["fwd/horner"] + list(exp_bwd2.BWD_RUNS),
+          "bwd2: runs out of order")
+    for r in runs["exp_bwd2"] + runs["exp_bwd3"]:
+        check(r["launches"] > 0 and math.isfinite(r["ms"]) and r["exact"],
+              f"bwd2: {r['name']}: {r}")
+    horner = runs["exp_bwd2"][0]
+    check(horner["max_abs_sum"] > 0, "bwd2: fwd/horner's running sum is 0")
+    check(counts["exp_bwd2"]["fwd_ablate"] == horner["launches"]
+          and counts["exp_bwd3"]["fwd_ablate"] == 0,
+          "bwd2: fwd_ablate launches outside fwd/horner")
+    for script in runs:
+        check(counts[script]["bwd_ablate"] == sum(
+            r["launches"] for r in runs[script] if r["name"] != "fwd/horner"),
+            f"bwd2: bwd_ablate launches outside {script}'s runs")
+    print(f"[bwd2] {tool.W}x{tool.H}, entry_cap {tool.ENTRY_CAP}: " + "; ".join(
+        f"{r['name']} {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']}; {r['pairs']} pairs, "
+        f"{r['bytes']} bytes), device {r['kernel_ms']}"
+        for r in runs["exp_bwd2"] + runs["exp_bwd3"]) + f"; {smi_line}",
+        flush=True)
+
+    # Every backward form against kernel 4 (image-only) on the whole stream.
+    payload, st, sv, tls = tool.make_stream(dev)
+    tx = (tool.W + 15) // 16
+    tiles = ablate.n_tiles(tx, tool.H)
+    first, n_sub = comp.tile_sub_ranges(st, sv, tls, tiles)
+    k3 = comp._composite_cuda(payload, first, n_sub, tiles, tx, tool.W,
+                              tool.H)
+    cot = torch.full_like(k3, tool.COT)
+    cot[:, comp.O_DEPTH:comp.O_ACC + 1] = 0.0
+    k4 = comp._composite_bwd_cuda(payload, first, n_sub, k3, cot, tiles, tx,
+                                  tool.W, tool.H, True).reshape(-1, 12)
+    cst = tool.make_cst(k3)
+    vs_k4 = {}
+    for run, form in exp_bwd2.BWD_RUNS.items():
+        c = ablate.dense_cst(cst, st) if form.constants == "dense" else cst
+        got = ablate.bwd_ablate(payload, st, sv, c, "full", tx, tool.W,
+                                tool.H, form=form).reshape(-1, 12)
+        check(torch.equal(got[:, comp.F_R:], k4[:, comp.F_R:]),
+              f"bwd2 {run}: colour columns differ from composite_bwd")
+        worst = 0.0
+        for col in range(comp.F_R):
+            d = float((got[:, col] - k4[:, col]).abs().max())
+            tol = grad_budget(k4[:, col])
+            check(d <= tol, f"bwd2 {run}: column {col} max|Δ| {d} to "
+                            f"composite_bwd > {tol}")
+            worst = max(worst, d / tol)
+        exact = torch.equal(got[:, :comp.F_R], k4[:, :comp.F_R])
+        vs_k4[run] = {"geometry_exact": exact, "worst_of_budget": worst}
+        if form.moments == "vpu" and not exact:
+            print(f"[bwd2] {run}: the vpu geometry is not composite_bwd's "
+                  f"bit for bit (predicted); worst column at {worst:.3e} of "
+                  f"its budget", flush=True)
+    print(f"[bwd2] whole stream vs composite_bwd (image_only): colour "
+          f"columns bit for bit in every form; geometry " + "; ".join(
+              f"{k} {'exact' if v['geometry_exact'] else 'not exact'}, worst "
+              f"{v['worst_of_budget']:.3e} of budget"
+              for k, v in vs_k4.items()), flush=True)
+    del payload, st, sv, k3, k4, cst, got
+    torch.cuda.empty_cache()
+
+    held = {
+        "clustered 1920x1080, 16 blocks": bwd2_held(
+            "clustered", tool.clustered_stream(dev, 16), tool.W, tool.H),
+        "256x200 scene": bwd2_held(
+            "256x200", tool.scene_stream(dev, small, 256, 200, 1 << 17),
+            256, 200),
+        "1920x1080 first 512 blocks": bwd2_held(
+            "1080p/512", tool.make_stream(dev, 512), tool.W, tool.H),
+    }
+    torch.cuda.empty_cache()
+    print(f"[bwd2] {time.perf_counter() - t0:.1f} s (the tools "
+          f"{t_tools:.1f} s)", flush=True)
+    recs = {}
+    for name, mine in (("fwd_ablate_horner", [horner]),
+                       ("bwd_ablate_bwd2", runs["exp_bwd2"][1:]),
+                       ("bwd_ablate_bwd3", runs["exp_bwd3"])):
+        first_run = mine[0]
+        names = {r["name"] for r in mine}
+        recs[name] = dict(
+            ms=first_run["ms"], plain_ms=first_run["plain_ms"],
+            library_ms=None, bound_ms=first_run["bound_ms"],
+            bound_by=first_run["bound_by"],
+            max_abs_err=max(r["max_abs_err"] for r in mine),
+            extra=dict(runs=mine,
+                       vs_composite_bwd={k: v for k, v in vs_k4.items()
+                                         if k in names},
+                       held={k: {v: e for v, e in h.items() if v in names}
+                             for k, h in held.items()}))
+    # Launches per record: the kernels' counters over its script's runs
+    # (fwd/horner is the only fwd_ablate launch of either script).
+    launches = {"fwd_ablate_horner": counts["exp_bwd2"]["fwd_ablate"],
+                "bwd_ablate_bwd2": counts["exp_bwd2"]["bwd_ablate"],
+                "bwd_ablate_bwd3": counts["exp_bwd3"]["bwd_ablate"]}
+    return launches, recs
+
+
 def bench_scene(seed: int = 0):
     from msgs_torch.profile_render import bench_scene as scene
     return scene(seed)
@@ -1457,6 +1639,7 @@ def main():
     tools_counts, gather_rec = phase_tools(dev, st, smi_line)
     mxu_counts, mxu_rec = phase_mxu(dev, smi_line)
     ablate_counts, ablate_recs = phase_ablate(dev, small, smi_line)
+    bwd2_counts, bwd2_recs = phase_bwd2(dev, small, smi_line)
     train_counts, _ = phase_train(dev, st, cfg)
     del st
     phase_small_reference(dev)
@@ -1481,6 +1664,13 @@ def main():
                        "tools/exp_fwd_ablate.py:216 (fwd_kernel_var :97)"),
         "bwd_ablate": ("msgs_torch/csrc/bwd_ablate.cu",
                        "tools/exp_fwd_ablate.py:428 (bwd_var :268)"),
+        "fwd_ablate_horner": ("msgs_torch/csrc/fwd_ablate.cu",
+                              "tools/exp_bwd2.py:153 (fwd_horner_kernel "
+                              ":92)"),
+        "bwd_ablate_bwd2": ("msgs_torch/csrc/bwd_ablate.cu",
+                          "tools/exp_bwd2.py:323 (bwd_kernel_var :177)"),
+        "bwd_ablate_bwd3": ("msgs_torch/csrc/bwd_ablate.cu",
+                          "tools/exp_bwd3.py:259 (bwd_kernel :101)"),
     }
     kernel_recs = list(scans.items()) + [("composite_fwd", comp_rec),
                                          ("composite_bwd", bwd_rec),
@@ -1491,25 +1681,31 @@ def main():
                                           ablate_recs["fwd_ablate"]),
                                          ("bwd_ablate",
                                           ablate_recs["bwd_ablate"])]
+    kernel_recs += list(bwd2_recs.items())
+    runs = (serve_counts, tools_counts, mxu_counts, ablate_counts,
+            bwd2_counts, train_counts, trainer_counts)
     for name, rec in kernel_recs:
         src, rep = meta[name]
-        # launches: over the six main-path runs, each counted from 0
+        # launches: over the seven main-path runs, each counted from 0
         # (serving renders, the gather tools, the pair-math probe, the
-        # ablations, train_step calls, the trainer); then each run's.
+        # ablations, the follow-up experiments, train_step calls, the
+        # trainer); then each run's. The follow-up experiments' records
+        # share the ablation kernels' counters; [bwd2] gives each record
+        # the launches of its own runs.
         records.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": serve_counts[name] + tools_counts[name]
-            + mxu_counts[name] + ablate_counts[name] + train_counts[name]
-            + trainer_counts[name],
-            "launches_trainer": trainer_counts[name],
+            "launches": sum(c.get(name, 0) for c in runs),
+            "launches_trainer": trainer_counts.get(name, 0),
             "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"],
-            "launches_train_step": train_counts[name],
-            "launches_serving": serve_counts[name],
-            "launches_tools": tools_counts[name],
-            "launches_ablate": ablate_counts[name], **rec.get("extra", {})})
+            "launches_train_step": train_counts.get(name, 0),
+            "launches_serving": serve_counts.get(name, 0),
+            "launches_tools": tools_counts.get(name, 0),
+            "launches_ablate": ablate_counts.get(name, 0),
+            "launches_bwd2": bwd2_counts.get(name, 0),
+            **rec.get("extra", {})})
     print(f"[done] {time.perf_counter() - t_start:.1f} s; "
           f"{renders} serving renders, {STEPS} training steps, "
           f"{TRAIN_ITERS} trainer iterations", flush=True)

@@ -19,7 +19,8 @@
 // (the build uses -fmad=false), then dα and dpower, and sums the variant's
 // per-entry quantities over the tile's pixels with the fixed-order warp
 // butterfly of composite_common.cuh; warp 0 applies the chain rules and
-// writes each entry's 12-column dpay row (unused columns 0). The bf16
+// writes columns 0-8 of each entry's dpay row (the caller's zeros stay in
+// the columns a variant does not compute and in 9-11). The bf16
 // moments round dpower to bf16 on the CUDA cores (__float2bfloat16_rn) and
 // multiply by the basis, which is exact in bf16: every product is exact in
 // f32, so only the order of the f32 sums could differ from the TPU's.
@@ -37,6 +38,35 @@
 // terms and their butterfly) plus a bf16 rounding per pair for the
 // moments, over every computed sub of a live block; dpay, the payload and
 // the tiles' constant rows are read or written once.
+//
+// Also replaces tools/exp_bwd2.py:177 `bwd_kernel_var` (built by
+// `make_bwd` :297, called at :323; 4 runs) and tools/exp_bwd3.py:101
+// `bwd_kernel` (built by `make` :241, called at :259; 5 runs): `full` with
+// other moments and other ways to fetch constants and store rows
+// (kernels/ablate.py BwdForm), as template parameters of the same kernel:
+//   M       moments: kBf16 (bwd/full's); kDotF32, Σ dpower·m for
+//           the exact monomials m (the script's `_dot` under HIGHEST, one
+//           rounding per product); kVpu, dp_x = dpower·x first, as
+//           exp_bwd2.py:244-251 and composite_bwd.cu form them;
+//   kDense  constants: per tile (the TPU fetches them per sub at sub_tile;
+//           a CTA per tile reads them once) or the caller's dense
+//           (4·B, 8, 256) gather, read per sub by sub index;
+//   S       store: kCols (the nine computed columns, one store each; the
+//           variants above and exp_bwd3's colstore) or kRow (the 48-byte
+//           row as three float4 stores; catstore);
+//   kZero   zeroing: the caller zeroes dpay and live rows are written, or
+//           the kernel writes every row of the covered blocks once (nozero:
+//           columns 9-11 as zeros, extra CTAs after the tiles' zero the
+//           rows of blocks that do not compute).
+// The TPU's GROUP has no counterpart here (a CTA per tile has no grid
+// step): the wrapper passes the blocks its grid covers, (B // group)·group,
+// as n_blocks. nogrows (the TPU's implicit broadcast of the per-sub
+// constants instead of materialised (BLOCK, NPIX) rows) has none either: a
+// thread per pixel holds its constants in registers in every form, so
+// nogrows runs colstore's code. The bound is bwd/full's with the moment
+// terms of the form: 5 multiplies per pair for kVpu (dp_x, dp_y, then
+// ·x, ·y, ·y) and for kDotF32, without bwd/full's bf16 rounding
+// (tools/exp_fwd_ablate.py bwd_ops counts every form).
 #include <cuda_bf16.h>
 
 #include "composite_common.cuh"
@@ -52,14 +82,35 @@ constexpr int kPhi = 3;      // image-only colour terms r g b
 // kernels/ablate.py BWD_VARIANTS, in order.
 enum Variant { kFull = 0, kGeomNostore, kGeomConcat, kNoGeom, kNoPrefix,
                kRecomputeOnly };
+// kernels/ablate.py MOMENTS, in order.
+enum Moments { kBf16 = 0, kDotF32, kVpu };
+enum Store { kCols = 0, kRow };
+constexpr int kZeroCtas = 264;   // CTAs that zero the uncomputed blocks
 
-template <int V>
+// Rows of blocks [nb, n_blocks) as zeros, the blocks strided over the
+// zeroing CTAs (z of nz).
+__device__ void zero_blocks(const int* sub_valid, float* dpay, int n_blocks,
+                            int z, int nz) {
+  __shared__ int nb;
+  if (threadIdx.x == 0) nb = computed_blocks(sub_valid, n_blocks);
+  __syncthreads();
+  constexpr int kVec = kNSub * kSub * kFeat / 4;   // float4s per block
+  for (int b = nb + z; b < n_blocks; b += nz) {
+    float4* d = reinterpret_cast<float4*>(dpay + (long long)b * (kVec * 4));
+    for (int i = threadIdx.x; i < kVec; i += kPix)
+      d[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+template <int V, int M = kBf16, bool kDense = false, int S = kCols,
+          bool kZero = false>
 __global__ void __launch_bounds__(kPix)
 bwd_ablate_kernel(const float* __restrict__ payload,
                   const int* __restrict__ sub_tile,
                   const int* __restrict__ sub_valid,
                   const float* __restrict__ cst, float* __restrict__ dpay,
-                  int n_blocks, int tiles_x, int width, int height) {
+                  int n_blocks, int tiles, int tiles_x, int width,
+                  int height) {
   constexpr bool kAdvance = V == kFull || V == kNoPrefix;
   // Per-entry sums: Σ w; or Σ dpower and the 3 colour sums; or the 6
   // moments and the 3 colour sums.
@@ -70,6 +121,11 @@ bwd_ablate_kernel(const float* __restrict__ payload,
   __shared__ int run[2];
   const float kTEps = t_eps();
 
+  if (kZero && (int)blockIdx.x >= tiles) {
+    zero_blocks(sub_valid, dpay, n_blocks, blockIdx.x - tiles,
+                gridDim.x - tiles);
+    return;
+  }
   const int tile = blockIdx.x;
   const int p = threadIdx.x;
   const int warp = p >> 5;
@@ -87,13 +143,18 @@ bwd_ablate_kernel(const float* __restrict__ payload,
   const float oy = (float)(tile / tiles_x) * (float)kTile;
   const float pxl = (float)(p % kTile);
   const float pyl = (float)(p / kTile);
+  const float xx = pxl * pxl, xy = pxl * pyl, yy = pyl * pyl;
   // The tile's constant rows (tools/exp_fwd_ablate.py:257-264): g_r g_g
-  // g_b, and the suffix base total_phi + T_final·g_T.
-  const float* c = cst + (long long)tile * (kOut * kPix) + p;
+  // g_b, and the suffix base total_phi + T_final·g_T; per sub if dense.
   float g[kPhi];
+  float sfx;
+  auto constants = [&](long long row) {
+    const float* c = cst + row * (kOut * kPix) + p;
 #pragma unroll
-  for (int ch = 0; ch < kPhi; ++ch) g[ch] = c[ch * kPix];
-  const float sfx = c[5 * kPix] + c[6 * kPix];
+    for (int ch = 0; ch < kPhi; ++ch) g[ch] = c[ch * kPix];
+    sfx = c[5 * kPix] + c[6 * kPix];
+  };
+  if (!kDense) constants(tile);
 
   const float outside =
       ((pxl + ox) >= (float)width || (pyl + oy) >= (float)height) ? 1.0f
@@ -119,6 +180,7 @@ bwd_ablate_kernel(const float* __restrict__ payload,
     }
     const float* src = payload + (long long)j * (kSub * kFeat);
     for (int i = p; i < kSub * kFeat; i += kPix) sp[i] = src[i];
+    if (kDense) constants(j);
     __syncthreads();
 
     // α and the prefix product, exactly as composite_fwd.cu computes them.
@@ -188,8 +250,22 @@ bwd_ablate_kernel(const float* __restrict__ payload,
           v[i] = w[i];
         } else if (V == kNoGeom) {
           v[i] = q == 0 ? wphi[i] : w[i] * g[q == 0 ? 0 : q - 1];
+        } else if (q < kMom && M == kDotF32) {
+          const float dp = wphi[i];
+          switch (q) {
+            case 0: v[i] = dp * xx; break;          // x²
+            case 1: v[i] = dp * xy; break;          // xy
+            case 2: v[i] = dp * yy; break;          // y²
+            case 3: v[i] = dp * pxl; break;         // x
+            case 4: v[i] = dp * pyl; break;         // y
+            default: v[i] = dp; break;              // 1
+          }
         } else if (q < kMom) {
-          const float dp = __bfloat162float(__float2bfloat16_rn(wphi[i]));
+          // kBf16 rounds dpower to bf16 first; kVpu takes it as it is.
+          // Both form (dp·x)·x, (dp·x)·y and (dp·y)·y.
+          const float dp =
+              M == kBf16 ? __bfloat162float(__float2bfloat16_rn(wphi[i]))
+                         : wphi[i];
           switch (q) {
             case 0: v[i] = dp * pxl * pxl; break;   // x²
             case 1: v[i] = dp * pxl * pyl; break;   // xy
@@ -252,8 +328,18 @@ bwd_ablate_kernel(const float* __restrict__ payload,
           for (int ch = 0; ch < kPhi; ++ch) row[F_R + ch] = s[kMom + ch];
         }
       }
+      float* dr = d + lane * kFeat;
+      if (S == kCols) {
+        // kZero writes every column once, 9-11 as zeros.
+        constexpr int kCol = kZero ? kFeat : F_R + kPhi;
 #pragma unroll
-      for (int col = 0; col < kFeat; ++col) d[lane * kFeat + col] = row[col];
+        for (int col = 0; col < kCol; ++col) dr[col] = row[col];
+      } else {
+        float4* d4 = reinterpret_cast<float4*>(dr);
+        d4[0] = make_float4(row[0], row[1], row[2], row[3]);
+        d4[1] = make_float4(row[4], row[5], row[6], row[7]);
+        d4[2] = make_float4(row[8], row[9], row[10], row[11]);
+      }
     }
 
     // Also the barrier before the next sub overwrites sp and red.
@@ -261,23 +347,32 @@ bwd_ablate_kernel(const float* __restrict__ payload,
   }
 }
 
-template <int V>
+template <int V, int M = kBf16, bool kDense = false, int S = kCols,
+          bool kZero = false>
 int launch(const float* pay, const int* st, const int* sv, const float* cst,
            float* dpay, int n_blocks, int tiles, int tiles_x, int width,
            int height, cudaStream_t s) {
-  bwd_ablate_kernel<V><<<tiles, kPix, 0, s>>>(pay, st, sv, cst, dpay,
-                                              n_blocks, tiles_x, width,
-                                              height);
+  const int grid = tiles + (kZero ? kZeroCtas : 0);
+  bwd_ablate_kernel<V, M, kDense, S, kZero><<<grid, kPix, 0, s>>>(
+      pay, st, sv, cst, dpay, n_blocks, tiles, tiles_x, width, height);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// The forms of `full` built (kernels/ablate.py BUILT_FORMS): moments,
+// dense, row store, kernel zeroing.
+#define MSGS_BWD_FORM(M, D, R, Z)                                          \
+  if (moments == M && dense == D && row_store == R && kernel_zero == Z)    \
+    return launch<kFull, M, D, R ? kRow : kCols, Z>(                        \
+        pay, st, sv, c, d, n_blocks, tiles, tiles_x, width, height, s);
+
 extern "C" int msgs_bwd_ablate(const void* payload, const void* sub_tile,
                                const void* sub_valid, const void* cst,
                                void* dpay, int n_blocks, int variant,
-                               int tiles, int tiles_x, int width, int height,
-                               void* stream) {
+                               int moments, int dense, int row_store,
+                               int kernel_zero, int tiles, int tiles_x,
+                               int width, int height, void* stream) {
   if (n_blocks <= 0 || tiles <= 0) return 0;
   const float* pay = (const float*)payload;
   const int* st = (const int*)sub_tile;
@@ -285,10 +380,20 @@ extern "C" int msgs_bwd_ablate(const void* payload, const void* sub_tile,
   const float* c = (const float*)cst;
   float* d = (float*)dpay;
   cudaStream_t s = (cudaStream_t)stream;
+  if (variant == kFull) {
+    MSGS_BWD_FORM(kBf16, false, false, false)    // bwd/full
+    MSGS_BWD_FORM(kVpu, false, false, false)     // geom_vpu, colstore
+    MSGS_BWD_FORM(kDotF32, true, false, false)   // cst_dense
+    MSGS_BWD_FORM(kVpu, true, false, false)      // geom_vpu+cst_dense
+    MSGS_BWD_FORM(kDotF32, false, false, false)  // g16
+    MSGS_BWD_FORM(kVpu, false, true, false)      // catstore
+    MSGS_BWD_FORM(kVpu, false, false, true)      // nozero
+    MSGS_BWD_FORM(kVpu, false, true, true)       // all
+    return (int)cudaErrorInvalidValue;
+  }
+  if (moments != kBf16 || dense || row_store || kernel_zero)
+    return (int)cudaErrorInvalidValue;
   switch (variant) {
-    case kFull:
-      return launch<kFull>(pay, st, sv, c, d, n_blocks, tiles, tiles_x,
-                           width, height, s);
     case kGeomNostore:
       return launch<kGeomNostore>(pay, st, sv, c, d, n_blocks, tiles,
                                   tiles_x, width, height, s);

@@ -39,6 +39,17 @@
 // running sum is a dependent chain of one add per block per (row, pixel):
 // its latency, not its bytes, bounds it, and the kernel keeps 32 loads in
 // flight per thread to hide it.
+//
+// Also replaces tools/exp_bwd2.py:92 `fwd_horner_kernel`, built by
+// `make_simple` :141 and called at :153: pairs_only with the power from
+// per-entry Horner coefficients (:112-120), the `kHorner` instance of
+// fwd_block_kernel. Its threads 0-127 first compute the block's 128
+// entries' coefficients (a, b, c, d, e, f0) and opacity into shared memory,
+// in the script's order; each pixel's thread then evaluates u = a·x + d,
+// v = c·y + e and power = (u + b·y)·x + v·y + f0 per entry (10 operations
+// where splat_alpha takes 11, about 20 with the mask against 21). The TPU
+// writes slot 4b of each computed block with its running state, as the
+// other block variants do, and so does running_sum_kernel.
 #include "composite_common.cuh"
 
 namespace {
@@ -50,9 +61,36 @@ constexpr int kGroup = 8;              // blocks per grid step
 constexpr int kAcc = 5;                // rows r g b depth acc
 constexpr int kBatch = 32;             // running-sum loads in flight
 
-// kernels/ablate.py FWD_VARIANTS, in order.
+// kernels/ablate.py ALL_FWD (FWD_VARIANTS, then HORNER_VARIANTS), in order.
 enum Variant { kFull = 0, kDumpLast, kNoDump, kNoStates, kPairsOnly,
-               kPairsNoaccs, kPairsNoscan, kPairsAlpha, kSmallOut };
+               kPairsNoaccs, kPairsNoscan, kPairsAlpha, kSmallOut, kHorner };
+constexpr int kCoef = 8;   // horner: a b c d e f0 op, padded
+
+// horner's per-entry coefficients (tools/exp_bwd2.py:112-117), into
+// c[0..6] = a, b, c, d, e, f0, op.
+__device__ __forceinline__ void horner_coefs(const float* e, float* c) {
+  const float mx = e[F_MX], my = e[F_MY];
+  const float cxx = e[F_CXX], cxy = e[F_CXY], cyy = e[F_CYY];
+  c[0] = -0.5f * cxx;
+  c[1] = -cxy;
+  c[2] = -0.5f * cyy;
+  c[3] = cxx * mx + cxy * my;
+  c[4] = cyy * my + cxy * mx;
+  c[5] = -0.5f * (cxx * mx * mx + cyy * my * my) - cxy * mx * my;
+  c[6] = e[F_OP];
+}
+
+// α of one entry at tile-local pixel (pxl, pyl) from its coefficients
+// (:118-127).
+__device__ __forceinline__ float horner_alpha(const float* c, float pxl,
+                                              float pyl) {
+  const float u = c[0] * pxl + c[3];
+  const float v = c[2] * pyl + c[4];
+  const float power = (u + c[1] * pyl) * pxl + v * pyl + c[5];
+  const float araw = c[6] * expf(power);
+  const bool m = (araw >= alpha_min()) && (power <= 0.0f);
+  return m ? fminf(araw, alpha_max()) : 0.0f;
+}
 
 // Keeps x computed without storing it (no_dump's colour sums, which the
 // TPU kernel computes into its state and never stores).
@@ -145,6 +183,7 @@ fwd_block_kernel(const float* __restrict__ payload,
                  float* __restrict__ partial, int tiles_x, int width,
                  int height) {
   __shared__ __align__(16) float sp[kBlock * kFeat];
+  __shared__ float hc[V == kHorner ? kBlock * kCoef : 1];
   const int b = blockIdx.x;
   const int p = threadIdx.x;
   if (sub_valid[b * kNSub] != 1) return;
@@ -153,6 +192,10 @@ fwd_block_kernel(const float* __restrict__ payload,
   for (int i = p; i < kBlock * kFeat / 4; i += kPix)
     reinterpret_cast<float4*>(sp)[i] = src[i];
   __syncthreads();
+  if (V == kHorner) {
+    if (p < kBlock) horner_coefs(sp + p * kFeat, hc + p * kCoef);
+    __syncthreads();
+  }
 
   const float pxl = (float)(p % kTile);
   const float pyl = (float)(p / kTile);
@@ -188,14 +231,19 @@ fwd_block_kernel(const float* __restrict__ payload,
 #pragma unroll
       for (int i = 0; i < kSub; ++i) {
         float araw;
-        al[i] = splat_alpha(rows + i * kFeat, 0.0f, 0.0f, pxl, pyl, araw);
+        al[i] = V == kHorner
+                    ? horner_alpha(hc + (k * kSub + i) * kCoef, pxl, pyl)
+                    : splat_alpha(rows + i * kFeat, 0.0f, 0.0f, pxl, pyl,
+                                  araw);
         cu[i] = 1.0f - al[i];
       }
-      if (V == kPairsOnly || V == kPairsNoaccs) hs_prefix_product(cu);
+      constexpr bool kScan = V == kPairsOnly || V == kPairsNoaccs ||
+                             V == kHorner;
+      if (kScan) hs_prefix_product(cu);
 #pragma unroll
       for (int i = 0; i < kSub; ++i) {
         float w = al[i];
-        if (V == kPairsOnly || V == kPairsNoaccs) {
+        if (kScan) {
           const float ce = i == 0 ? 1.0f : cu[i - 1];
           w = al[i] * ce * (cu[i] >= kTEps ? 1.0f : 0.0f);
         }
@@ -309,6 +357,9 @@ extern "C" int msgs_fwd_ablate(const void* payload, const void* sub_tile,
     case kPairsAlpha:
       return launch_block<kPairsAlpha>(pay, st, sv, o, wr, part, n_blocks,
                                        tiles_x, width, height, s);
+    case kHorner:
+      return launch_block<kHorner>(pay, st, sv, o, wr, part, n_blocks,
+                                   tiles_x, width, height, s);
   }
   return (int)cudaErrorInvalidValue;
 }

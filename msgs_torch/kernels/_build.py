@@ -58,9 +58,10 @@ _SIGNATURES = {
     # (payload, sub_tile, sub_valid, out, written, partial, n_blocks,
     #  variant, tiles, tiles_x, width, height, stream)
     "msgs_fwd_ablate": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # (payload, sub_tile, sub_valid, cst, dpay, n_blocks, variant, tiles,
-    #  tiles_x, width, height, stream)
-    "msgs_bwd_ablate": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # (payload, sub_tile, sub_valid, cst, dpay, n_blocks, variant, moments,
+    #  dense, row_store, kernel_zero, tiles, tiles_x, width, height, stream)
+    "msgs_bwd_ablate": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _I, _P],
 }
 
 _lib = None

@@ -70,6 +70,44 @@ sub's tile (tools/exp_fwd_ablate.py:257-264), colour terms r g b only:
   recompute_only  column 0: Σ_p w
 Unwritten columns are 0.
 
+The later experiments, tools/exp_bwd2.py and tools/exp_bwd3.py, over the
+same grid and state:
+  horner        (fwd_ablate, HORNER_VARIANTS; exp_bwd2.py:92
+                `fwd_horner_kernel`) pairs_only with the power from
+                per-entry Horner coefficients, in the script's order
+                (:112-120): a = −½cxx, b = −cxy, c = −½cyy, d = cxx·mx +
+                cxy·my, e = cyy·my + cxy·mx, f0 = −½(cxx·mx·mx + cyy·my·my)
+                − cxy·mx·my, u = a·x + d, v = c·y + e, power = (u + b·y)·x
+                + v·y + f0, at tile-local pixels with absolute means. With
+                means ~10³ pixels from the origin the form cancels (f0 ≈
+                −½cxx·mx²); that rounding is part of its function.
+  backward forms  (bwd_ablate's `full` with `form`; exp_bwd2.py:177
+                `bwd_kernel_var`, exp_bwd3.py:101 `bwd_kernel`) bwd/full's
+                function with other moments, on five axes (BwdForm):
+                moments `dot_bf16` (bwd/full's), `dot_f32` or `vpu`;
+                constants `gathered` (each sub reads cst at its tile) or
+                `dense` (the caller gathers cst[sub_tile] into one (4·B, 8,
+                256) buffer, dense_cst, and sub j reads row j); group 8 or
+                16 (the grid covers (B // group)·group blocks; later blocks
+                are not computed); store `columns` (nine column stores) or
+                `row` (one 48-byte row store); zeroing `caller` (the caller
+                zeroes dpay, live rows are written) or `kernel` (every row
+                of the covered blocks is written once, zeros included).
+                BWD2_RUNS and BWD3_RUNS name the scripts' runs. exp_bwd3's
+                nogrows (the TPU kernel's implicit broadcast of the per-sub
+                constants) has no axis: a thread per pixel holds them in
+                registers in every form, so nogrows is colstore's form.
+The moments. `vpu` forms dp_x = dpower·x and dp_y = dpower·y and sums
+dp_x·x, dp_x·y, dp_y·y, dp_x, dp_y and dpower (exp_bwd2.py:239-251), which
+is kernel 4's arithmetic (composite_bwd.cu). `dot_f32` is `comp._dot(
+d_power, comp._local_basis_t())` (exp_bwd2.py:186, :253), two helpers
+msgs/kernels/composite.py no longer has: its comment at :641-646 says the
+r3 design contracted d_power with a static (NPIX, 8) basis on the MXU
+under the package's HIGHEST default, a 6-pass f32 product. So `dot_f32`
+sums dpower·m for m in the raw monomials [x², xy, y², x, y, 1] (each
+exact in f32: tools/exp_fwd_ablate.py:242-254's basis), each product
+rounded once.
+
 Every sum over a sub's 32 rows runs in row order, and every sum over a
 tile's 256 pixels in the kernels' order: a pairwise tree over each warp's
 32 lanes (lane l with l + 16, then + 8, + 4, + 2, + 1), then the 8 warps
@@ -78,6 +116,8 @@ versions bit for bit (up to the sign of a zero). The kernels are
 msgs_torch/csrc/fwd_ablate.cu and msgs_torch/csrc/bwd_ablate.cu.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -96,8 +136,47 @@ FWD_VARIANTS = ("full", "dump_last", "no_dump", "no_states", "pairs_only",
 BWD_VARIANTS = ("full", "geom_nostore", "geom_concat", "no_geom",
                 "no_prefix", "recompute_only")
 TILE_VARIANTS = ("full", "dump_last", "no_dump", "small_out")
+HORNER_VARIANTS = ("horner",)
+ALL_FWD = FWD_VARIANTS + HORNER_VARIANTS   # fwd_ablate.cu's order
 # Backward variants that advance the (T, done, prefix) state.
 ADVANCING = ("full", "no_prefix")
+
+
+# bwd_ablate.cu's moment forms, in order.
+MOMENTS = ("dot_bf16", "dot_f32", "vpu")
+
+
+class BwdForm(NamedTuple):
+    """A form of the `full` backward (see the module docstring); the
+    default is bwd/full's, the only one the other variants take."""
+    moments: str = "dot_bf16"       # dot_bf16 | dot_f32 | vpu
+    constants: str = "gathered"     # gathered | dense
+    group: int = 8                  # 8 | 16
+    store: str = "columns"          # columns | row
+    zeroing: str = "caller"         # caller | kernel
+
+
+# The scripts' runs, in their order (exp_bwd2.py:341-348, exp_bwd3.py:
+# 271-279).
+BWD2_RUNS = {
+    "geom_vpu": BwdForm("vpu"),
+    "cst_dense": BwdForm("dot_f32", constants="dense"),
+    "geom_vpu+cst_dense": BwdForm("vpu", constants="dense"),
+    "g16": BwdForm("dot_f32", group=16),
+}
+BWD3_RUNS = {
+    "colstore": BwdForm("vpu"),
+    "catstore": BwdForm("vpu", store="row"),
+    "nozero": BwdForm("vpu", zeroing="kernel"),
+    "nogrows": BwdForm("vpu"),
+    "all": BwdForm("vpu", store="row", zeroing="kernel"),
+}
+_AXES = {"moments": MOMENTS, "constants": ("gathered", "dense"),
+         "group": (8, 16), "store": ("columns", "row"),
+         "zeroing": ("caller", "kernel")}
+# The forms csrc/bwd_ablate.cu builds (group is not a kernel parameter).
+BUILT_FORMS = {f._replace(group=8) for f in
+               (BwdForm(), *BWD2_RUNS.values(), *BWD3_RUNS.values())}
 # Blocks per chunk of the plain versions' block-wise passes: bounds their
 # (chunk, 128, 256) intermediates. Blocks are independent there, so the
 # chunking changes no value.
@@ -295,10 +374,30 @@ def _pair_alpha(feat):
     return torch.where(mask, torch.clamp(alpha_raw, max=ALPHA_MAX), 0.0)
 
 
+def _horner_alpha(feat):
+    """α of horner: _pair_alpha's with the power from per-entry Horner
+    coefficients, operation for operation as tools/exp_bwd2.py:112-120."""
+    pxl, pyl = _local_pix(feat.device)
+    mx, my = feat[..., 0, None], feat[..., 1, None]
+    cxx, cxy, cyy = (feat[..., c, None] for c in (2, 3, 4))
+    a = -0.5 * cxx
+    bq = -cxy
+    c = -0.5 * cyy
+    d = cxx * mx + cxy * my
+    e = cyy * my + cxy * mx
+    f0 = -0.5 * (cxx * mx * mx + cyy * my * my) - cxy * mx * my
+    u = a * pxl + d
+    v = c * pyl + e
+    power = (u + bq * pyl) * pxl + v * pyl + f0
+    alpha_raw = feat[..., 5, None] * torch.exp(power)
+    mask = (alpha_raw >= ALPHA_MIN) & (power <= 0.0)
+    return torch.where(mask, torch.clamp(alpha_raw, max=ALPHA_MAX), 0.0)
+
+
 def _pairs_partials(feat, variant):
-    """(b, 5, NPIX) per-block terms of a pairs variant (rows past the
-    variant's are 0)."""
-    alpha = _pair_alpha(feat)
+    """(b, 5, NPIX) per-block terms of a pairs variant or horner (rows past
+    the variant's are 0)."""
+    alpha = _horner_alpha(feat) if variant == "horner" else _pair_alpha(feat)
     part = torch.zeros((feat.shape[0], NACC, NPIX), dtype=torch.float32,
                        device=feat.device)
     if variant == "pairs_alpha":
@@ -373,8 +472,7 @@ def _running_sum(out, written, partials):
 def fwd_ablate_plain(payload, sub_tile, sub_valid, variant: str,
                      tiles_x: int, width: int, height: int, out=None):
     """Plain version of fwd_ablate (same arguments and results)."""
-    _check(payload, sub_tile, sub_valid, variant, FWD_VARIANTS,
-           "fwd_ablate")
+    _check(payload, sub_tile, sub_valid, variant, ALL_FWD, "fwd_ablate")
     out = fwd_out(payload, variant, out)
     written = torch.zeros(out.shape[0], dtype=torch.bool,
                           device=payload.device)
@@ -417,10 +515,39 @@ def bf16_moments(d_power):
             pixel_tree_sum(dpb * pyl), pixel_tree_sum(dpb))
 
 
-def _bwd_sub_rows(variant, feat, sub, t_in, g, sfx, P):
+def f32_moments(d_power):
+    """`dot_f32`: the six moments Σ_p dpower·m, m in [x², xy, y², x, y, 1]
+    (each m exact, each product rounded once)."""
+    pxl, pyl = _local_pix(d_power.device)
+    return (pixel_tree_sum(d_power * (pxl * pxl)),
+            pixel_tree_sum(d_power * (pxl * pyl)),
+            pixel_tree_sum(d_power * (pyl * pyl)),
+            pixel_tree_sum(d_power * pxl), pixel_tree_sum(d_power * pyl),
+            pixel_tree_sum(d_power))
+
+
+def vpu_moments(d_power):
+    """`vpu`: the six moments from dp_x = dpower·x and dp_y = dpower·y, as
+    tools/exp_bwd2.py:244-251 and kernel 4 form them."""
+    pxl, pyl = _local_pix(d_power.device)
+    dp_x = d_power * pxl
+    dp_y = d_power * pyl
+    return (pixel_tree_sum(dp_x * pxl), pixel_tree_sum(dp_x * pyl),
+            pixel_tree_sum(dp_y * pyl), pixel_tree_sum(dp_x),
+            pixel_tree_sum(dp_y), pixel_tree_sum(d_power))
+
+
+def _moments(form, d_power):
+    if form == "dot_bf16":
+        return bf16_moments(d_power)
+    return f32_moments(d_power) if form == "dot_f32" else vpu_moments(
+        d_power)
+
+
+def _bwd_sub_rows(variant, feat, sub, t_in, g, sfx, P, moments="dot_bf16"):
     """dpay rows (A, 32, NFEAT) of one sub of each active run and the wφ
-    prefix at its last row, in composite_bwd.cu's arithmetic with bf16
-    moments."""
+    prefix at its last row, in composite_bwd.cu's arithmetic with the
+    given moments."""
     w = sub.w
     rows = torch.zeros_like(feat)
     if variant == "recompute_only":
@@ -451,7 +578,7 @@ def _bwd_sub_rows(variant, feat, sub, t_in, g, sfx, P):
         for c in range(NPHI):
             rows[..., F_R + c] = dfeat[c]
         return rows, prefix[:, -1]
-    q20, q11, q02, q10, q01, q00 = bf16_moments(d_power)
+    q20, q11, q02, q10, q01, q00 = _moments(moments, d_power)
     mxl, myl = sub.mxl, sub.myl
     cxx, cxy, cyy = feat[..., 2], feat[..., 3], feat[..., 4]
     op = feat[..., 5]
@@ -473,22 +600,34 @@ def _bwd_sub_rows(variant, feat, sub, t_in, g, sfx, P):
 
 
 def bwd_ablate_plain(payload, sub_tile, sub_valid, cst, variant: str,
-                     tiles_x: int, width: int, height: int, out=None):
+                     tiles_x: int, width: int, height: int, out=None,
+                     form: BwdForm = BwdForm()):
     """Plain version of bwd_ablate (same arguments and result)."""
-    _check(payload, sub_tile, sub_valid, variant, BWD_VARIANTS,
-           "bwd_ablate")
-    _check_cst(cst, payload, n_tiles(tiles_x, height))
+    n_cover = _check_bwd(payload, sub_tile, sub_valid, cst, variant, form,
+                         n_tiles(tiles_x, height))
     dpay = _bwd_out(payload, out)
+    if form.zeroing == "kernel":
+        dpay[:n_cover] = 0.0
+    nb = min(_n_compute(sub_tile, sub_valid), n_cover)
+    _bwd_walk(payload, sub_tile, nb, cst, form.constants == "dense", variant,
+              form.moments, tiles_x, width, height, dpay)
+    return dpay
+
+
+def _bwd_walk(payload, sub_tile, nb: int, cst, dense: bool, variant: str,
+              moments: str, tiles_x: int, width: int, height: int, dpay):
+    """Writes the dpay rows of the first nb blocks' subs: per tile run, the
+    backward of each sub in order. cst is per tile, or per sub (dense)."""
+    if nb == 0:
+        return
     dev = payload.device
     feats = payload.reshape(-1, SUB, NFEAT)
     rows_out = dpay.view(-1, SUB, NFEAT)
-    nb = _n_compute(sub_tile, sub_valid)
-    if nb == 0:
-        return dpay
     # The runs cover every computed sub, so each of their rows is written.
     start, length, tile = _runs(sub_tile, nb)
-    g_all = cst[tile, 0:NPHI]                                # (R, 3, NPIX)
-    sfx_all = cst[tile, 5] + cst[tile, 6]                    # (R, NPIX)
+    if not dense:
+        g_all = cst[tile, 0:NPHI]                            # (R, 3, NPIX)
+        sfx_all = cst[tile, 5] + cst[tile, 6]                # (R, NPIX)
     t_run = torch.ones((start.shape[0], NPIX), dtype=torch.float32,
                        device=dev)
     done_run = _outside(tile, tiles_x, width, height)
@@ -501,23 +640,52 @@ def bwd_ablate_plain(payload, sub_tile, sub_valid, cst, variant: str,
             t_run[:n] = torch.where(new_block, 0.0, t_run[:n])
             done_run[:n] = torch.where(new_block, 0.0, done_run[:n])
             p_run[:n] = torch.where(new_block, 0.0, p_run[:n])
+        if dense:
+            g, sfx = cst[j, 0:NPHI], cst[j, 5] + cst[j, 6]
+        else:
+            g, sfx = g_all[:n], sfx_all[:n]
         t_in, done = t_run[:n], done_run[:n]
         sub = _sub_step(feats, j, tile[:n], t_in, done, tiles_x)
-        rows, p_run[:n] = _bwd_sub_rows(variant, feats[j], sub, t_in,
-                                        g_all[:n], sfx_all[:n], p_run[:n])
+        rows, p_run[:n] = _bwd_sub_rows(variant, feats[j], sub, t_in, g,
+                                        sfx, p_run[:n], moments)
         rows_out[j] = rows
         t_run[:n], done_run[:n] = _advance(sub, t_in, done)
-    return dpay
+
+
+def _check_bwd(payload, sub_tile, sub_valid, cst, variant, form,
+               tiles: int):
+    """Checks bwd_ablate's arguments; returns the blocks the grid covers."""
+    _check(payload, sub_tile, sub_valid, variant, BWD_VARIANTS,
+           "bwd_ablate")
+    if not isinstance(form, BwdForm):
+        raise TypeError(f"bwd_ablate: form must be a BwdForm, not {form!r}")
+    for axis, allowed in _AXES.items():
+        if getattr(form, axis) not in allowed:
+            raise ValueError(f"bwd_ablate: {axis} {getattr(form, axis)!r} "
+                             f"not in {allowed}")
+    if variant != "full" and form != BwdForm():
+        raise ValueError(f"bwd_ablate: {variant} takes only the default "
+                         f"form, not {form}")
+    dense = form.constants == "dense"
+    _check_cst(cst, payload, sub_tile.shape[0] if dense else tiles)
+    return payload.shape[0] // form.group * form.group
+
+
+def dense_cst(cst, sub_tile, out=None):
+    """The `dense` constants: cst (tiles, 8, 256) gathered at every sub's
+    tile, (4·B, 8, 256) (tools/exp_bwd2.py:333-335; binning keeps sub_tile
+    inside [0, tiles), so the script's clip changes nothing)."""
+    return torch.index_select(cst, 0, sub_tile, out=out)
 
 
 def n_tiles(tiles_x: int, height: int) -> int:
     return tiles_x * (-(-height // TILE))
 
 
-def _check_cst(cst, payload, tiles: int):
+def _check_cst(cst, payload, rows: int):
     if (cst.dtype != torch.float32
-            or tuple(cst.shape) != (tiles, NOUT, NPIX)):
-        raise TypeError(f"bwd_ablate: cst must be a ({tiles}, {NOUT}, "
+            or tuple(cst.shape) != (rows, NOUT, NPIX)):
+        raise TypeError(f"bwd_ablate: cst must be a ({rows}, {NOUT}, "
                         f"{NPIX}) float32 tensor, not {cst.dtype} of shape "
                         f"{tuple(cst.shape)}")
     if cst.device != payload.device:
@@ -558,7 +726,7 @@ def _fwd_cuda(payload, sub_tile, sub_valid, variant, tiles_x, width, height,
         payload.data_ptr(), sub_tile.data_ptr(), sub_valid.data_ptr(),
         out.data_ptr(), written.data_ptr(),
         None if partial is None else partial.data_ptr(), B,
-        FWD_VARIANTS.index(variant), n_tiles(tiles_x, height), tiles_x,
+        ALL_FWD.index(variant), n_tiles(tiles_x, height), tiles_x,
         width, height, _build.stream_ptr(payload))
     _build.check(err, f"fwd_ablate {variant}")
     # One per kernel launched: the block terms and their running sum, or
@@ -567,21 +735,30 @@ def _fwd_cuda(payload, sub_tile, sub_valid, variant, tiles_x, width, height,
     return out, written
 
 
-def _bwd_cuda(payload, sub_tile, sub_valid, cst, variant, tiles_x, width,
-              height, out):
+def _bwd_cuda(payload, sub_tile, sub_valid, cst, variant, form, tiles_x,
+              width, height, out):
     payload, sub_tile, sub_valid = _cuda_args(payload, sub_tile, sub_valid,
                                               "bwd_ablate")
     tiles = n_tiles(tiles_x, height)
-    _check_cst(cst, payload, tiles)
+    n_cover = _check_bwd(payload, sub_tile, sub_valid, cst, variant, form,
+                         tiles)
+    if form._replace(group=8) not in BUILT_FORMS:
+        raise ValueError(f"bwd_ablate: {form} is not built in "
+                         f"csrc/bwd_ablate.cu (ablate.BUILT_FORMS)")
     cst = cst.contiguous()
     dpay = _bwd_out(payload, out)
+    if dpay.data_ptr() % 16:
+        raise ValueError("bwd_ablate: out must be 16-byte aligned (row "
+                         "stores write float4s)")
     lib = _build.load()
     err = lib.msgs_bwd_ablate(
         payload.data_ptr(), sub_tile.data_ptr(), sub_valid.data_ptr(),
-        cst.data_ptr(), dpay.data_ptr(), payload.shape[0],
-        BWD_VARIANTS.index(variant), tiles, tiles_x, width, height,
+        cst.data_ptr(), dpay.data_ptr(), n_cover,
+        BWD_VARIANTS.index(variant), MOMENTS.index(form.moments),
+        int(form.constants == "dense"), int(form.store == "row"),
+        int(form.zeroing == "kernel"), tiles, tiles_x, width, height,
         _build.stream_ptr(payload))
-    _build.check(err, f"bwd_ablate {variant}")
+    _build.check(err, f"bwd_ablate {variant} {form}")
     _build.launch_counts["bwd_ablate"] += 1
     return dpay
 
@@ -594,9 +771,9 @@ def fwd_ablate(payload, sub_tile, sub_valid, variant: str, tiles_x: int,
     is used in place (zeros by default); its unwritten slots keep their
     values. payload (B, 128, 12) float32 with B a multiple of 8, sub_tile
     and sub_valid (4·B,) int32, as binning gives them. A CUDA tensor goes
-    through csrc/fwd_ablate.cu, a CPU tensor through fwd_ablate_plain."""
-    _check(payload, sub_tile, sub_valid, variant, FWD_VARIANTS,
-           "fwd_ablate")
+    through csrc/fwd_ablate.cu, a CPU tensor through fwd_ablate_plain.
+    `variant` is one of FWD_VARIANTS or HORNER_VARIANTS."""
+    _check(payload, sub_tile, sub_valid, variant, ALL_FWD, "fwd_ablate")
     if payload.device.type == "cuda":
         return _fwd_cuda(payload, sub_tile, sub_valid, variant, tiles_x,
                          width, height, out)
@@ -607,18 +784,23 @@ def fwd_ablate(payload, sub_tile, sub_valid, variant: str, tiles_x: int,
 
 
 def bwd_ablate(payload, sub_tile, sub_valid, cst, variant: str,
-               tiles_x: int, width: int, height: int, out=None):
+               tiles_x: int, width: int, height: int, out=None,
+               form: BwdForm = BwdForm()):
     """The backward variant `variant` over the stream: dpay (B, 128, 12).
     cst (tiles, 8, 256) float32 holds each tile's constant rows (see the
-    module docstring). `out`, if given, is used in place and must be zero
-    in the rows of blocks that do not compute. A CUDA tensor goes through
-    csrc/bwd_ablate.cu, a CPU tensor through bwd_ablate_plain."""
-    _check(payload, sub_tile, sub_valid, variant, BWD_VARIANTS,
-           "bwd_ablate")
+    module docstring). `full` takes any form (a BwdForm; BWD2_RUNS and
+    BWD3_RUNS hold the forms of tools/exp_bwd2.py and exp_bwd3.py), the
+    other variants only the default; for constants "dense" cst is the
+    (4·B, 8, 256) gather dense_cst(cst, sub_tile). `out`, if given, is
+    used in place: under zeroing "caller" it must be zero (zeros by
+    default), and the kernel writes columns 0-8 of the live rows; under
+    "kernel" every row of the covered blocks is written, so it may come
+    from torch.empty. A CUDA tensor goes through csrc/bwd_ablate.cu, a CPU
+    tensor through bwd_ablate_plain."""
     if payload.device.type == "cuda":
-        return _bwd_cuda(payload, sub_tile, sub_valid, cst, variant, tiles_x,
-                         width, height, out)
+        return _bwd_cuda(payload, sub_tile, sub_valid, cst, variant, form,
+                         tiles_x, width, height, out)
     if payload.device.type == "cpu":
         return bwd_ablate_plain(payload, sub_tile, sub_valid, cst, variant,
-                                tiles_x, width, height, out)
+                                tiles_x, width, height, out, form)
     raise ValueError(f"bwd_ablate: unsupported device {payload.device}")

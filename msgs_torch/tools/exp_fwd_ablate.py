@@ -23,8 +23,8 @@ card, the host clock on the CPU. `main` returns one record per variant:
 name, ms, launches (of the CUDA kernels over the check and the timed
 calls: 0 on the CPU), plain_ms,
 max_abs_err (to the plain version), exact (bit for bit, up to the sign of
-a zero), kernel_ms (on the card: device ms per call of each kernel, from
-a profiler trace) and the bound: bound_ms, bound_by ("bytes" or "operations"), with
+a zero), kernel_ms (on the card: device ms per call of each kernel and
+the events it kept, from a profiler trace) and the bound: bound_ms, bound_by ("bytes" or "operations"), with
 the pairs, operations and bytes it counts on this run's stream.
 `main(..., n_blocks=K)` cuts the stream to its first K blocks.
 """
@@ -62,20 +62,35 @@ PEAK_FP32 = 67e12
 #   mask, the clamp and the select: 21; the prefix product and w 9 (1 − α,
 #   ~4 multiplies, the compare and its select, 2 multiplies); the colour
 #   sums 10; a max 1;
-#   bwd_ablate.cu: the forward's 46, φ 5, T_i, T_i·φ and w·φ 3, the wφ
-#   prefix ~4, dα and dpower 9, and per summed quantity its term and its
-#   butterfly add: full, geom_* and no_prefix 6 moments (with the bf16
-#   rounding, 9) and 3 colour sums (6): 82, no_prefix without the prefix
-#   78; no_geom Σ dpower and 3 colour sums (8): 75; recompute_only the
-#   forward and Σ w: 47.
+#   bwd_ablate.cu (bwd_ops): the forward's 46, φ 5, T_i, T_i·φ and w·φ
+#   3, the wφ prefix ~4, dα and dpower 9 (67); then per summed quantity
+#   the operations that form its term and one butterfly add. The six
+#   moments' terms need 5 multiplies in every form (dot_f32: dpower times
+#   the monomials x², xy, y², x, y, which are per pixel; vpu and kernel 4:
+#   dp_x = dpower·x, dp_y = dpower·y, dp_x·x, dp_x·y, dp_y·y), dot_bf16
+#   (bwd/full) also the rounding of dpower, 6; the three colour sums w·g
+#   3. So a form of full: 67 + 5 or 6 + 6 + 3 + 3 = 84 or 85; geom_nostore
+#   and geom_concat as full; no_prefix without the prefix, 81; no_geom
+#   Σ dpower and the colour sums, 67 + 1 + 6 = 74; recompute_only the
+#   forward and Σ w, 47.
 _ALPHA, _SCAN, _ACC = 21, 9, 10
+_BWD_BASE = 46 + 5 + 3 + 4 + 9
+MOMENT_OPS = {"dot_bf16": 6, "dot_f32": 5, "vpu": 5}
+
+
+def bwd_ops(moments: str = "dot_bf16") -> int:
+    """fp32 operations per pair of bwd_ablate's full in a moment form."""
+    return _BWD_BASE + MOMENT_OPS[moments] + 6 + 3 + 3
+
+
 OPS_PER_PAIR = {
     "full": 46, "dump_last": 46, "no_dump": 46, "small_out": 46,
     "no_states": 46,
     "pairs_only": _ALPHA + _SCAN + _ACC, "pairs_noaccs": _ALPHA + _SCAN + 1,
     "pairs_noscan": _ALPHA + _ACC, "pairs_alpha": _ALPHA + 1,
-    "bwd/full": 82, "bwd/geom_nostore": 82, "bwd/geom_concat": 82,
-    "bwd/no_geom": 75, "bwd/no_prefix": 78, "bwd/recompute_only": 47,
+    "bwd/full": bwd_ops(), "bwd/geom_nostore": bwd_ops(),
+    "bwd/geom_concat": bwd_ops(), "bwd/no_geom": _BWD_BASE + 1 + 6,
+    "bwd/no_prefix": bwd_ops() - 4, "bwd/recompute_only": 46 + 1,
 }
 SLOT_BYTES = comp.NOUT * comp.NPIX * 4
 SUB_BYTES = 32 * comp.NFEAT * 4
@@ -230,8 +245,12 @@ KERNELS = ("fwd_tile_kernel", "fwd_block_kernel", "running_sum_kernel",
 
 def kernel_ms(fn, reps: int = 5) -> dict:
     """Device ms per call of each kernel fn launches, from a profiler
-    trace: {kernel: ms}, the ablation kernels by name, the rest (the
-    written mask's zeroing) as "other"."""
+    trace of `reps` calls: {kernel: {"ms": ms, "events": n}}, the ablation
+    kernels by name, the rest (the written mask's zeroing, dpay's zeroing,
+    the dense constants' gather) together as "other". fn launches each
+    ablation kernel once per call; the trace can lose events, so such a
+    kernel's ms is the mean of the n events it kept (n < reps shows a
+    loss). "other" is its total over reps, per call."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     fn()
@@ -245,12 +264,14 @@ def kernel_ms(fn, reps: int = 5) -> dict:
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-    out = {}
+    total, count = {}, {}
     for e in events:
         if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memset"):
             name = next((k for k in KERNELS if k in e["name"]), "other")
-            out[name] = out.get(name, 0.0) + e["dur"] / 1e3 / reps
-    return out
+            total[name] = total.get(name, 0.0) + e["dur"] / 1e3
+            count[name] = count.get(name, 0) + 1
+    return {k: {"ms": total[k] / (reps if k == "other" else count[k]),
+                "events": count[k]} for k in total}
 
 
 def parse_args(argv):

@@ -18,7 +18,7 @@ from msgs_torch.kernels import scan
 from msgs_torch.kernels.gather import gather_rows, gather_rows_plain
 from msgs_torch.kernels.mxu_probe import (NDF, NPIX, pair_block_probe,
                                           pair_block_probe_plain)
-from msgs_torch.tools import exp_fwd_ablate
+from msgs_torch.tools import exp_bwd2, exp_fwd_ablate
 from msgs_torch.tools.exp_mxu import REL_BUDGET, RUNS, held_rows, \
     make_payload
 from msgs_torch.kernels.binning import bin_gaussians
@@ -408,3 +408,93 @@ def test_ablate_full_equals_kernels_3_and_4(dev):
     dpay = ablate.bwd_ablate(pay, st, sv, exp_fwd_ablate.make_cst(k3),
                              "full", _ATX, _AW, _AH)
     assert torch.equal(dpay[..., 6:9], k4[..., 6:9])
+
+
+# The kernels of tools/exp_bwd2.py and exp_bwd3.py: horner (fwd_ablate.cu)
+# and the backward forms (bwd_ablate.cu), bit for bit against their plain
+# versions, as the ablation variants above.
+_BWD_FORMS = exp_bwd2.BWD_RUNS
+
+
+def test_fwd_horner_kernel_matches_plain(dev):
+    for pay, st, sv in (_ablate_stream(dev)[:3], _pairs_stream(dev)):
+        before = _build.launch_counts["fwd_ablate"]
+        got, written = ablate.fwd_ablate(pay, st, sv, "horner", _ATX, _AW,
+                                         _AH)
+        torch.cuda.synchronize()
+        assert _build.launch_counts["fwd_ablate"] == before + 2
+        want, want_written = ablate.fwd_ablate_plain(pay, st, sv, "horner",
+                                                     _ATX, _AW, _AH)
+        assert torch.equal(written, want_written)
+        assert torch.equal(got, want), float((got - want).abs().max())
+        assert want[written][:, :5].abs().max() > 0
+
+
+@pytest.mark.parametrize("run", list(_BWD_FORMS))
+def test_bwd_form_kernel_matches_plain(dev, run):
+    """Each run's form against its plain version; a form that zeroes in
+    the kernel writes into a torch.empty buffer filled with NaN first, so
+    an unwritten row shows."""
+    form = _BWD_FORMS[run]
+    pay, st, sv, tls = _ablate_stream(dev)
+    tiles = ablate.n_tiles(_ATX, _AH)
+    res = comp.composite(pay, st, sv, tls, tiles, _ATX, _AW, _AH)
+    cst = exp_fwd_ablate.make_cst(res)
+    if form.constants == "dense":
+        cst = ablate.dense_cst(cst, st)
+    out = None
+    if form.zeroing == "kernel":
+        out = torch.empty_like(pay).fill_(float("nan"))
+    before = _build.launch_counts["bwd_ablate"]
+    got = ablate.bwd_ablate(pay, st, sv, cst, "full", _ATX, _AW, _AH,
+                            out=out, form=form)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["bwd_ablate"] == before + 1
+    assert not got.isnan().any(), run
+    want = ablate.bwd_ablate_plain(pay, st, sv, cst, "full", _ATX, _AW, _AH,
+                                   form=form)
+    assert torch.equal(got, want), (run, float((got - want).abs().max()))
+    assert want.abs().max() > 0
+    again = ablate.bwd_ablate(pay, st, sv, cst, "full", _ATX, _AW, _AH,
+                              out=out, form=form)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+def test_bwd_forms_match_kernel_4(dev):
+    """Every form's colour columns, and the vpu forms' geometry columns,
+    equal composite_bwd.cu's image-only backward bit for bit under a
+    cotangent whose depth and acc rows are 0 (the image-only suffix);
+    the dot_f32 forms' geometry is within the gradient budget."""
+    pay, st, sv, tls = _ablate_stream(dev)
+    tiles = ablate.n_tiles(_ATX, _AH)
+    first, n_sub = comp.tile_sub_ranges(st, sv, tls, tiles)
+    k3 = comp._composite_cuda(pay, first, n_sub, tiles, _ATX, _AW, _AH)
+    cot = torch.full_like(k3, 0.1)
+    cot[:, comp.O_DEPTH:comp.O_ACC + 1] = 0.0
+    k4 = comp._composite_bwd_cuda(pay, first, n_sub, k3, cot, tiles, _ATX,
+                                  _AW, _AH, True).reshape(-1, 12)
+    cst = exp_fwd_ablate.make_cst(k3)
+    for run, form in _BWD_FORMS.items():
+        c = ablate.dense_cst(cst, st) if form.constants == "dense" else cst
+        got = ablate.bwd_ablate(pay, st, sv, c, "full", _ATX, _AW, _AH,
+                                form=form).reshape(-1, 12)
+        assert torch.equal(got[:, 6:], k4[:, 6:]), run
+        if form.moments == "vpu":
+            assert torch.equal(got[:, :6], k4[:, :6]), run
+        for col in range(6):
+            tol = 3e-5 * float(k4[:, col].abs().max()) + 1e-6
+            assert float((got[:, col] - k4[:, col]).abs().max()) <= tol, \
+                (run, col)
+
+
+def test_bwd_ablate_unbuilt_form_raises(dev):
+    """A form the plain version takes but bwd_ablate.cu does not build is
+    refused on the card, not run as another form."""
+    pay, st, sv, tls = _ablate_stream(dev)
+    cst = ablate.dense_cst(torch.zeros((ablate.n_tiles(_ATX, _AH), 8, 256),
+                                       device=dev), st)
+    form = ablate.BwdForm(constants="dense")      # bf16 moments, dense
+    assert form not in ablate.BUILT_FORMS
+    with pytest.raises(ValueError, match="not built"):
+        ablate.bwd_ablate(pay, st, sv, cst, "full", _ATX, _AW, _AH,
+                          form=form)
