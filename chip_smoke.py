@@ -6,12 +6,18 @@ Builds the CUDA kernels from msgs_torch/csrc (into build/msgs_torch/), then:
 
   1. device: the card, and its name and power limit from nvidia-smi;
   2. build: the kernel build time and ptxas's register / shared-memory use;
+     for the scan (kernels 1, 2) and the bf16 backward (4b), the runtime's
+     registers, stack, static and dynamic shared memory and CTAs per SM
+     (cudaFuncGetAttributes, cudaOccupancyMaxActiveBlocksPerMultiprocessor);
   3. kernels vs plain: each kernel against its plain PyTorch version on the
-     card at the main path's shapes (scans exact; compositor forward image
-     and T ≤ 1e-5, depth and acc ≤ 1e-4; compositor backward per payload
-     column ≤ 3e-5·max|column| + 1e-6, for image_only True and False), with
-     median times, the plain version's time and, for the scans,
-     torch.cumsum's time as a yardstick;
+     card at the main path's shapes (scans exact, also at lengths around a
+     chunk and a prime near 10^6; compositor forward image and T ≤ 1e-5,
+     depth and acc ≤ 1e-4; compositor backward per payload column ≤
+     3e-5·max|column| + 1e-6, for image_only True and False), with median
+     times (CUDA events) beside the profiler's device time, the plain
+     version's time and, for the scans, torch.cumsum's time as a yardstick
+     (timed in turns with the kernel), the host-clock times, and a profile
+     that must show one scan launch per call and no memset;
   4. serving path: a serving model at the bench.py scene (100,000
      Gaussians, seed 0) with SH degree 3 colours, saved as a PLY snapshot
      and loaded back, rendered by eval_render at 1920×1080 from three
@@ -34,7 +40,8 @@ Builds the CUDA kernels from msgs_torch/csrc (into build/msgs_torch/), then:
      at the bench stream and the 256×200 scene, both image_only values;
      two launches bit-identical; and rasterize's parameter gradients with
      it against those with the exact kernel under the JAX suite's bf16
-     criterion (tests/test_rasterize.py:157), on the same two scenes;
+     criterion (tests/test_rasterize.py:157), on the same two scenes. The
+     exact kernel is timed beside it;
   8. trainer: msgs_torch.data.synthetic renders the synthetic scene
      (24 + 8 views, 512×512, 20,000 Gaussians, seed 0) and
      msgs_torch.apps.train.main trains it 1,100 iterations in the MS-GS
@@ -51,7 +58,10 @@ Builds the CUDA kernels from msgs_torch/csrc (into build/msgs_torch/), then:
      resume from the iteration-600 checkpoint runs. The bf16 backward is
      then held against its plain version (BF16_BUDGET per column) on the
      last stream the run gave it at each image size, and on the streams of
-     one train_step of the final state at each of COARSE_LVLS.
+     one train_step of the final state at each of COARSE_LVLS. Kernels 3,
+     4b and 4 are timed on the run's last 512² stream, and kernels 1 and 2
+     at every shape the run scanned (exact, then timed as in item 3), with
+     Σ calls × (ms − bound) per scan kernel.
   9. tools: the ported gather experiments (msgs_torch.tools.exp_gather and
      exp_gather2) run in-process at their defaults (N = 100,000, E = 2^21);
      counters are zeroed just before and read just after, and the gather
@@ -110,6 +120,7 @@ JSON object describing every kernel; the last line is the device record.
 """
 from __future__ import annotations
 
+import collections
 import json
 import math
 import os
@@ -248,6 +259,121 @@ def phase_build():
             print(f"[build]   {name}: "
                   f"{line.split(':', 1)[1].strip()}; {stack}")
             name = None
+    # The scan's and the bf16 backward's builds as the runtime reports them.
+    for label, entry, arg in KERNEL_INFO:
+        i = _build.kernel_info(entry, arg)
+        print(f"[build] {label}: {i['registers']} registers, "
+              f"{i['stack_bytes']} bytes of stack, {i['static_smem']} bytes "
+              f"of static and {i['dynamic_smem']} of dynamic shared memory, "
+              f"{i['ctas_per_sm']} CTAs per SM", flush=True)
+
+
+# (label, msgs_*_info entry, argument) of the kernels [build] reads back.
+KERNEL_INFO = (("scan_lookback<float> (kernel 1)", "msgs_scan_info", 0),
+               ("scan_lookback<int32> (kernel 2)", "msgs_scan_info", 1),
+               ("composite_bwd_bf16 image_only (kernel 4b)",
+                "msgs_composite_bwd_bf16_info", 1),
+               ("composite_bwd_bf16 all columns (kernel 4b)",
+                "msgs_composite_bwd_bf16_info", 0))
+
+
+def paired_ms(fa, fb, reps: int = 50) -> tuple:
+    """Median CUDA-event times of fa and fb, timed in turns (a b b a ...),
+    so that a drift of the host's speed touches both alike."""
+    for _ in range(2):
+        fa()
+        fb()
+    torch.cuda.synchronize()
+    times = ([], [])
+    for i in range(reps):
+        for k in ((0, 1) if i % 2 == 0 else (1, 0)):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            (fa, fb)[k]()
+            e.record()
+            e.synchronize()
+            times[k].append(s.elapsed_time(e))
+    return statistics.median(times[0]), statistics.median(times[1])
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """Median host-clock ms of one call of fn, synchronised."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def device_ms(fn, kernel: str, reps: int = 5, tries: int = 3):
+    """(mean device ms of `kernel`'s events, events, traces) from profiler
+    traces of reps calls of fn. A trace can lose events, at times all of
+    them: one that kept none of `kernel`'s is taken again, up to `tries`
+    traces. Every trace taken is returned, by kernel; (None, 0) if none
+    kept an event of `kernel`."""
+    from msgs_torch.tools import trace_ms
+    traces = []
+    for _ in range(tries):
+        traces.append(trace_ms(fn, reps))
+        rec = traces[-1].get(kernel)
+        if rec:
+            return rec["ms"], rec["events"], traces
+    return None, 0, traces
+
+
+def ms_text(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def scan_times(x, reps: int = 20) -> dict:
+    """Kernel 1 or 2 on x: CUDA-event, host-clock and device times, its
+    launches per call counted by the profiler, torch.cumsum's times, and
+    the bytes bound."""
+    from msgs_torch.kernels import scan
+    from msgs_torch.tools import trace_ms
+    R, E = x.shape
+    call = lambda: scan.cumsum_rows(x)
+    lib = lambda: torch.cumsum(x, dim=-1, dtype=x.dtype)
+    ms, lib_ms = paired_ms(call, lib, 2 * reps + 10)
+    plain = median_ms(lambda: scan.cumsum_rows_plain(x), reps)
+    dev_ms, events, traces = device_ms(call, "scan_lookback", 10)
+    # One launch per call and no memset: every trace holds scan_lookback
+    # only, at most once per call (a trace may lose events), and one of
+    # them holds it.
+    check(events > 0 and all(
+        set(tr) <= {"scan_lookback"}
+        and tr.get("scan_lookback", {"events": 0})["events"] <= 10
+        for tr in traces),
+          f"scan {R}x{E}: the profiler saw {traces}, 10 calls a trace")
+    lib_tr = trace_ms(lib, 10)
+    nbytes = 2 * R * E * 4
+    bound = max(nbytes / PEAK_BYTES, R * E / PEAK_FP32) * 1e3
+    return dict(ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=bound,
+                bound_by="bytes", host_ms=host_ms(call, reps),
+                library_host_ms=host_ms(lib, reps), device_ms=dev_ms,
+                device_events=events, device_traces=len(traces),
+                library_device_ms=(sum(v["ms"] for v in lib_tr.values())
+                                   if lib_tr else None),
+                library_kernels=sorted(lib_tr), shape=[R, E])
+
+
+def scan_line(label, rec) -> str:
+    return (f"{label} {rec['shape'][0]}x{rec['shape'][1]}: kernel "
+            f"{rec['ms']:.4f} ms (CUDA events, in turns with torch.cumsum; "
+            f"host clock {rec['host_ms']:.4f}, "
+            f"device {rec['device_ms']:.4f} from {rec['device_events']} of 10 "
+            f"calls in trace {rec['device_traces']}, one launch per call, no "
+            f"memset), torch.cumsum "
+            f"{rec['library_ms']:.4f} ms (host clock "
+            f"{rec['library_host_ms']:.4f}, device "
+            f"{ms_text(rec['library_device_ms'])}: "
+            f"{rec['library_kernels']}), "
+            f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms")
 
 
 def scan_record(name, dtype, shapes, dev):
@@ -276,17 +402,11 @@ def scan_record(name, dtype, shapes, dev):
         print(f"[kernels] {name} R={R} E={E}: max|Δ| {err}", flush=True)
         check(err == 0, f"{name} differs from its plain version at {R}x{E}")
         if rec is None:
-            ms = median_ms(lambda: scan.cumsum_rows(x), 20)
-            plain = median_ms(lambda: scan.cumsum_rows_plain(x), 20)
-            lib = median_ms(lambda: torch.cumsum(x, dim=-1, dtype=x.dtype),
-                            20)
-            nbytes = 2 * R * E * 4
-            bound = max(nbytes / PEAK_BYTES, R * E / PEAK_FP32) * 1e3
-            rec = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
-                       bound_by="bytes", max_abs_err=err, shape=[R, E])
-            print(f"[kernels] {name} {R}x{E}: kernel {ms:.4f} ms, plain "
-                  f"{plain:.4f} ms, torch.cumsum {lib:.4f} ms, bound "
-                  f"{bound:.4f} ms", flush=True)
+            t = scan_times(x)
+            rec = {k: t.pop(k) for k in ("ms", "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by")}
+            rec.update(max_abs_err=err, extra=t)
+            print(f"[kernels] {scan_line(name, dict(rec, **t))}", flush=True)
     return rec
 
 
@@ -336,13 +456,16 @@ def composite_check(label, dev, stream, width, height, timed: bool):
         return None
     args = (payload, first, n_sub, tiles, tx, width, height)
     ms = median_ms(lambda: comp._composite_cuda(*args), 20)
+    dev_ms = device_ms(lambda: comp._composite_cuda(*args),
+                       "composite_fwd_kernel")[0]
     plain = median_ms(lambda: comp._composite_plain(*args), 3, warmup=1)
     work_subs = int(n_work)
     pairs = work_subs * 32 * 256
     nbytes = work_subs * 32 * 12 * 4 + tiles * 2 * 4 + tiles * 8 * 256 * 4
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = pairs * OPS_PER_PAIR / PEAK_FP32 * 1e3
-    print(f"[kernels] composite_fwd {label}: kernel {ms:.4f} ms, plain "
+    print(f"[kernels] composite_fwd {label}: kernel {ms:.4f} ms (device "
+          f"{ms_text(dev_ms)}), plain "
           f"{plain:.4f} ms; {int(n_sub.sum())} valid sub-blocks, "
           f"{work_subs} before saturation, {pairs} pairs; bound "
           f"{max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f}, operations "
@@ -351,7 +474,8 @@ def composite_check(label, dev, stream, width, height, timed: bool):
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 max_abs_err=max(errs[c] for c in ("r", "g", "b", "T")),
-                valid_subs=int(n_sub.sum()), work_subs=work_subs)
+                valid_subs=int(n_sub.sum()), work_subs=work_subs,
+                extra=dict(device_ms=dev_ms))
 
 
 def grad_budget(want) -> float:
@@ -406,13 +530,16 @@ def composite_bwd_check(label, dev, stream, width, height, timed: bool):
               flush=True)
         if timed:
             ms = median_ms(lambda: comp._composite_bwd_cuda(*args), 20)
+            dev_ms = device_ms(lambda: comp._composite_bwd_cuda(*args),
+                               "composite_bwd_kernel")[0]
             plain = median_ms(lambda: comp.composite_bwd_reference(*args), 3,
                               warmup=1)
             n_work, pairs, t_bytes = bwd_work(stream, width, height)
             nf = 3 if image_only else 5
             t_ops = pairs * OPS_PER_PAIR_BWD[nf] / PEAK_FP32 * 1e3
             print(f"[kernels] composite_bwd {label} image_only={image_only}: "
-                  f"kernel {ms:.4f} ms, plain {plain:.4f} ms; {n_work} "
+                  f"kernel {ms:.4f} ms (device {ms_text(dev_ms)}), plain "
+                  f"{plain:.4f} ms; {n_work} "
                   f"sub-blocks before saturation, {pairs} pairs; bound "
                   f"{max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f}, "
                   f"operations {t_ops:.4f})", flush=True)
@@ -420,7 +547,7 @@ def composite_bwd_check(label, dev, stream, width, height, timed: bool):
                 ms=ms, plain_ms=plain, library_ms=None,
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
-                max_abs_err=err)
+                max_abs_err=err, extra=dict(device_ms=dev_ms))
     if timed:
         # Deterministic: a second launch is bit-identical.
         a = comp._composite_bwd_cuda(payload, first, n_sub, res, cot, tiles,
@@ -462,6 +589,7 @@ def composite_bwd_bf16_check(label, dev, stream, width, height,
                              timed: bool):
     """The bwd_bf16 kernel vs composite_bwd_bf16_reference and vs the exact
     kernel, on the card, for image_only False and True."""
+    from msgs_torch.kernels import _build
     from msgs_torch.kernels import composite as comp
     payload, first, n_sub, tiles, tx = stream
     res = comp._composite_cuda(payload, first, n_sub, tiles, tx, width,
@@ -505,6 +633,9 @@ def composite_bwd_bf16_check(label, dev, stream, width, height,
               f"max, q99 rel {worst_q99:.4f} (not a criterion)", flush=True)
         if timed:
             ms = median_ms(lambda: comp._composite_bwd_bf16_cuda(*args), 20)
+            dev_ms = device_ms(lambda: comp._composite_bwd_bf16_cuda(*args),
+                               "composite_bwd_bf16_kernel")[0]
+            exact_ms = median_ms(lambda: comp._composite_bwd_cuda(*args), 20)
             plain = median_ms(
                 lambda: comp.composite_bwd_bf16_reference(*args), 3,
                 warmup=1)
@@ -513,18 +644,24 @@ def composite_bwd_bf16_check(label, dev, stream, width, height,
             t_ops = pairs * OPS_PER_PAIR_BWD_BF16[nf] / PEAK_FP32 * 1e3
             t_mma = pairs * MMA_FLOPS_PER_PAIR / PEAK_BF16 * 1e3
             bound = max(t_bytes, t_ops, t_mma)
+            info = _build.kernel_info("msgs_composite_bwd_bf16_info",
+                                      int(image_only))
             print(f"[kernels] composite_bwd_bf16 {label} image_only="
-                  f"{image_only}: kernel {ms:.4f} ms, plain {plain:.4f} ms; "
+                  f"{image_only}: kernel {ms:.4f} ms (device {ms_text(dev_ms)}; "
+                  f"the exact kernel {exact_ms:.4f} ms in this call), plain "
+                  f"{plain:.4f} ms; "
                   f"{n_work} sub-blocks before saturation, {pairs} pairs; "
                   f"bound {bound:.4f} ms (bytes {t_bytes:.4f}, fp32 "
-                  f"operations {t_ops:.4f}, tensor-core operations "
-                  f"{t_mma:.4f}); ptxas: "
-                  f"{ptxas_report('composite_bwd_bf16.cu')}; dynamic "
-                  f"shared memory 71808 bytes", flush=True)
+                  f"operations {t_ops:.4f}; the staged-MMA design's tensor-core "
+                  f"operations {t_mma:.4f}); ptxas: "
+                  f"{ptxas_report('composite_bwd_bf16.cu')}; {info}",
+                  flush=True)
             recs[image_only] = dict(
                 ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound,
                 bound_by="operations" if max(t_ops, t_mma) >= t_bytes
-                else "bytes", max_abs_err=err)
+                else "bytes", max_abs_err=err,
+                extra=dict(device_ms=dev_ms, exact_kernel_ms=exact_ms,
+                           build=info))
     if timed:
         a = comp._composite_bwd_bf16_cuda(payload, first, n_sub, res, cot,
                                           tiles, tx, width, height, True)
@@ -532,6 +669,72 @@ def composite_bwd_bf16_check(label, dev, stream, width, height,
                                           tiles, tx, width, height, True)
         check(torch.equal(a, b), "composite_bwd_bf16 is not deterministic")
     return recs.get(True)
+
+
+def trainer_stream_times(args) -> dict:
+    """Kernels 3, 4b (and, for comparison, 4) on one of the trainer's kept
+    streams: CUDA-event and device ms, and each
+    bound, counted as in [kernels]."""
+    from msgs_torch.kernels import composite as comp
+    payload, first, n_sub, res, cot, tiles, tx, width, height, io = args
+    fwd = lambda: comp._composite_cuda(payload, first, n_sub, tiles, tx,
+                                       width, height)
+    bf16 = lambda: comp._composite_bwd_bf16_cuda(*args)
+    n_work, pairs, t_bytes = bwd_work(args[:3] + args[5:7], width, height)
+    nf = 3 if io else 5
+    fwd_bytes = (n_work * 32 * 12 * 4 + tiles * 2 * 4
+                 + tiles * 8 * 256 * 4) / PEAK_BYTES * 1e3
+    out = {
+        "composite_fwd": dict(
+            ms=median_ms(fwd, 20),
+            device_ms=device_ms(fwd, "composite_fwd_kernel")[0],
+            bound_ms=max(fwd_bytes, pairs * OPS_PER_PAIR / PEAK_FP32 * 1e3)),
+        "composite_bwd_bf16": dict(
+            ms=median_ms(bf16, 20),
+            device_ms=device_ms(bf16, "composite_bwd_bf16_kernel")[0],
+            bound_ms=max(t_bytes,
+                         pairs * OPS_PER_PAIR_BWD_BF16[nf] / PEAK_FP32 * 1e3,
+                         pairs * MMA_FLOPS_PER_PAIR / PEAK_BF16 * 1e3)),
+        "composite_bwd": dict(
+            ms=median_ms(lambda: comp._composite_bwd_cuda(*args), 20),
+            bound_ms=max(t_bytes,
+                         pairs * OPS_PER_PAIR_BWD[nf] / PEAK_FP32 * 1e3)),
+    }
+    print(f"[trainer] kernels on the trainer's {width}x{height} stream "
+          f"({tiles} tiles, {int(n_sub.sum())} sub-blocks, {n_work} before "
+          f"saturation, image_only={io}): " + "; ".join(
+              f"{k} {v['ms']:.4f} ms (device "
+              f"{ms_text(v.get('device_ms'))}), bound {v['bound_ms']:.4f}"
+              for k, v in out.items()), flush=True)
+    return out
+
+
+def trainer_scan_times(shapes) -> dict:
+    """Kernels 1 and 2 at each shape the trainer scanned, {(dtype, R, E):
+    calls}: exact against the plain version, then timed as in [kernels].
+    Returns {kernel: [record per shape, most calls first]}."""
+    from msgs_torch.kernels import scan
+    g = torch.Generator().manual_seed(9)
+    out = {"scan_f32": [], "scan_i32": []}
+    for (dtype, R, E), calls in sorted(shapes.items(),
+                                       key=lambda kv: -kv[1]):
+        name = "scan_f32" if dtype == torch.float32 else "scan_i32"
+        x = torch.randint(-6, 9, (R, E), generator=g).to(dtype).cuda()
+        check(torch.equal(scan.cumsum_rows(x), scan.cumsum_rows_plain(x)),
+              f"{name} differs from its plain version at the trainer's "
+              f"{R}x{E}")
+        rec = dict(scan_times(x), calls=calls)
+        out[name].append(rec)
+        print(f"[trainer] {scan_line(name, rec)}; {calls} calls in the run",
+              flush=True)
+    for name, recs in out.items():
+        cost = sum(r["calls"] * (r["ms"] - r["bound_ms"]) for r in recs)
+        dev_cost = sum(r["calls"] * (r["device_ms"] - r["bound_ms"])
+                       for r in recs)
+        print(f"[trainer] {name}: {sum(r['calls'] for r in recs)} calls over "
+              f"{len(recs)} shapes; Σ calls × (ms − bound) {cost:.3f} ms "
+              f"(device ms: {dev_cost:.3f})", flush=True)
+    return out
 
 
 def trainer_bf16_check(streams):
@@ -906,6 +1109,7 @@ def phase_trainer(dev, smi_line):
     from msgs_torch.eval.metrics import psnr
     from msgs_torch.kernels import _build
     from msgs_torch.kernels import composite as comp
+    from msgs_torch.kernels import scan
     from msgs_torch.kernels.rasterize import RasterSettings
     from msgs_torch.model.gaussians import GaussianConfig
     from msgs_torch.profile_render import _device_busy_ms
@@ -933,15 +1137,24 @@ def phase_trainer(dev, smi_line):
             stamps.append((it, host_ops, time.perf_counter()))
 
         # The bf16 backward's last inputs at each image size, kept (not
-        # copied) as the run passes them, for trainer_bf16_check.
+        # copied) as the run passes them, for trainer_bf16_check; the
+        # shapes the run scans, counted.
         streams = {}
         launch_bf16 = comp._composite_bwd_bf16_cuda
+        launch_scan = scan._cumsum_cuda
+        scan_shapes = collections.Counter()
 
         def keep_stream(*args):
             streams[(args[7], args[8])] = args
             return launch_bf16(*args)
 
+        def count_scan(x):
+            scan_shapes[(x.dtype, x.numel() // x.shape[-1],
+                         x.shape[-1])] += 1
+            return launch_scan(x)
+
         comp._composite_bwd_bf16_cuda = keep_stream
+        scan._cumsum_cuda = count_scan
         torch.cuda.synchronize()
         _build.reset_launch_counts()
         t0 = time.perf_counter()
@@ -955,6 +1168,7 @@ def phase_trainer(dev, smi_line):
                 on_iteration=on_iteration)
         finally:
             comp._composite_bwd_bf16_cuda = launch_bf16
+            scan._cumsum_cuda = launch_scan
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(_build.launch_counts)
@@ -1093,6 +1307,8 @@ def phase_trainer(dev, smi_line):
         finally:
             comp._composite_bwd_bf16_cuda = launch_bf16
     trainer_bf16_check(streams)
+    times = dict(trainer_scan_times(scan_shapes),
+                 **trainer_stream_times(streams[(512, 512)]))
     del streams
     check(math.isfinite(pm) and pm - p0 >= PSNR_GAIN_DB,
           f"trainer: test x1 PSNR rose {pm - p0:.3f} dB by iteration "
@@ -1103,7 +1319,8 @@ def phase_trainer(dev, smi_line):
           f"iterations (host clock, synchronised); device busy {share}; "
           f"live {int(g.num_live)} of capacity {cap}; resume from "
           f"chkpnt600 to 620 ran; {smi_line}", flush=True)
-    return counts
+    return counts, dict(times, wall_s=wall, busy=share,
+                        median_iteration_ms=statistics.median(steps))
 
 
 def phase_tools(dev, st, smi_line):
@@ -1604,9 +1821,11 @@ def main():
 
     scans = {
         "scan_f32": scan_record("scan_f32", torch.float32,
-                                [(1, 270_336), (5, 1_417_216)], dev),
+                                [(1, 270_336), (5, 1_417_216), (7, 999_983),
+                                 (3, 4_097), (1, 1)], dev),
         "scan_i32": scan_record("scan_i32", torch.int32,
-                                [(4, 1_417_216)], dev),
+                                [(4, 1_417_216), (7, 999_983), (2, 4_095)],
+                                dev),
     }
     bench_stream = composite_stream(dev, *bench_scene(0), W, H, ENTRY_CAP)
     comp_rec = composite_check("1920x1080 bench stream", dev, bench_stream,
@@ -1644,7 +1863,7 @@ def main():
     del st
     phase_small_reference(dev)
     phase_train_small(dev)
-    trainer_counts = phase_trainer(dev, smi_line)
+    trainer_counts, trainer_times = phase_trainer(dev, smi_line)
 
     records = []
     meta = {
@@ -1705,6 +1924,8 @@ def main():
             "launches_tools": tools_counts.get(name, 0),
             "launches_ablate": ablate_counts.get(name, 0),
             "launches_bwd2": bwd2_counts.get(name, 0),
+            **({"trainer_shapes": trainer_times[name]}
+               if name in trainer_times else {}),
             **rec.get("extra", {})})
     print(f"[done] {time.perf_counter() - t_start:.1f} s; "
           f"{renders} serving renders, {STEPS} training steps, "

@@ -39,9 +39,15 @@ launch_counts = {"scan_f32": 0, "scan_i32": 0, "composite_fwd": 0,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # (x, out, chunk_totals, rows, length, stream)
-    "msgs_scan_f32": [_P, _P, _P, _I, ctypes.c_longlong, _P],
-    "msgs_scan_i32": [_P, _P, _P, _I, ctypes.c_longlong, _P],
+    # (x, out, tickets, status words, rows, length, epoch, stream)
+    "msgs_scan_f32": [_P, _P, _P, _P, _I, ctypes.c_longlong, ctypes.c_uint,
+                      _P],
+    "msgs_scan_i32": [_P, _P, _P, _P, _I, ctypes.c_longlong, ctypes.c_uint,
+                      _P],
+    # (int32 instance or image_only, int out[5]): the kernel's registers,
+    # stack, static and dynamic shared memory, CTAs per SM
+    "msgs_scan_info": [_I, _P],
+    "msgs_composite_bwd_bf16_info": [_I, _P],
     # (payload, first_sub, n_sub, out, tiles, tiles_x, width, height, stream)
     "msgs_composite_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (payload, first_sub, n_sub, res, cot, dpay, tiles, tiles_x, width,
@@ -160,5 +166,19 @@ def check(err: int, what: str):
                            f"({msg})")
 
 
+def kernel_info(entry: str, arg: int) -> dict:
+    """A kernel's build as the card's runtime reports it (`msgs_*_info`
+    entries): registers a thread, stack (local) bytes, static and dynamic
+    shared memory a CTA, and CTAs per SM at its launch configuration."""
+    lib = load()
+    out = (ctypes.c_int * 5)()
+    check(getattr(lib, entry)(arg, ctypes.addressof(out)), entry)
+    return dict(zip(("registers", "stack_bytes", "static_smem",
+                     "dynamic_smem", "ctas_per_sm"), out))
+
+
 def stream_ptr(t) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current CUDA stream of t's device, as the handle a kernel is
+    launched on. The raw getter builds no Stream object: it is on every
+    launch's host path."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

@@ -9,7 +9,11 @@ to and the bytes a gather must move.
 from __future__ import annotations
 
 import argparse
+import json
+import os
+import re
 import statistics
+import tempfile
 import time
 
 import torch
@@ -58,6 +62,39 @@ def time_ms(fn, dev: torch.device, reps: int = 20) -> float:
         e.synchronize()
         times.append(s.elapsed_time(e))
     return statistics.median(times)
+
+
+def trace_ms(fn, reps: int = 5) -> dict:
+    """The device side of fn from a torch.profiler trace of `reps` calls,
+    after one untraced call: {kernel: {"ms": mean device ms of its events,
+    "events": n}}. A kernel is named as the trace names it, without its
+    return type, namespace, template arguments and parameters; memsets are
+    "memset". A trace can lose events: n below reps × the launches of one
+    call shows the loss."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    total, count = {}, {}
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in ("kernel", "gpu_memset"):
+            continue
+        name = "memset" if e["cat"] == "gpu_memset" else re.split(
+            r"[<(]", re.sub(r"^void |\(anonymous namespace\)::", "",
+                            e["name"]))[0].split("::")[-1]
+        total[name] = total.get(name, 0.0) + e["dur"] / 1e3
+        count[name] = count.get(name, 0) + 1
+    return {k: {"ms": total[k] / count[k], "events": count[k]}
+            for k in total}
 
 
 def held_exact(name: str, got: torch.Tensor, want: torch.Tensor) -> None:

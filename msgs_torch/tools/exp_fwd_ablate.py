@@ -31,10 +31,7 @@ the pairs, operations and bytes it counts on this run's stream.
 from __future__ import annotations
 
 import argparse
-import json
-import os
 import sys
-import tempfile
 
 import numpy as np
 import torch
@@ -47,7 +44,7 @@ from msgs_torch.kernels.binning import bin_gaussians
 from msgs_torch.kernels.preprocess import preprocess
 from msgs_torch.kernels.rasterize import gather_payload
 from msgs_torch.profile_render import bench_scene
-from msgs_torch.tools import clock_name, device_name, time_ms
+from msgs_torch.tools import clock_name, device_name, time_ms, trace_ms
 
 W, H, N, ENTRY_CAP = 1920, 1080, 100_000, 1_572_864
 COT = 0.1
@@ -245,33 +242,22 @@ KERNELS = ("fwd_tile_kernel", "fwd_block_kernel", "running_sum_kernel",
 
 def kernel_ms(fn, reps: int = 5) -> dict:
     """Device ms per call of each kernel fn launches, from a profiler
-    trace of `reps` calls: {kernel: {"ms": ms, "events": n}}, the ablation
-    kernels by name, the rest (the written mask's zeroing, dpay's zeroing,
-    the dense constants' gather) together as "other". fn launches each
-    ablation kernel once per call; the trace can lose events, so such a
-    kernel's ms is the mean of the n events it kept (n < reps shows a
-    loss). "other" is its total over reps, per call."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    total, count = {}, {}
-    for e in events:
-        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memset"):
-            name = next((k for k in KERNELS if k in e["name"]), "other")
-            total[name] = total.get(name, 0.0) + e["dur"] / 1e3
-            count[name] = count.get(name, 0) + 1
-    return {k: {"ms": total[k] / (reps if k == "other" else count[k]),
-                "events": count[k]} for k in total}
+    trace of `reps` calls (`trace_ms`): {kernel: {"ms": ms, "events": n}},
+    the ablation kernels by name, the rest (the written mask's zeroing,
+    dpay's zeroing, the dense constants' gather) together as "other". fn
+    launches each ablation kernel once per call; the trace can lose events,
+    so such a kernel's ms is the mean of the n events it kept (n < reps
+    shows a loss). "other" is its total over reps, per call."""
+    out, other, n_other = {}, 0.0, 0
+    for name, r in trace_ms(fn, reps).items():
+        if name in KERNELS:
+            out[name] = r
+        else:
+            other += r["ms"] * r["events"]
+            n_other += r["events"]
+    if n_other:
+        out["other"] = {"ms": other / reps, "events": n_other}
+    return out
 
 
 def parse_args(argv):
@@ -291,7 +277,7 @@ def main(argv=None, n_blocks=None) -> list:
     tiles = ablate.n_tiles(tiles_x, H)
     B = payload.shape[0]
     clock = clock_name(dev)
-    reps = 20 if dev.type == "cuda" else 2
+    reps = 20 if dev.type == "cuda" else 1
     sargs = (payload, st, sv)
     print(f"exp_fwd_ablate: {B} blocks, {int(sv.sum())} valid subs, "
           f"{int((sv[::4] == 1).sum())} computed blocks on {dev} "

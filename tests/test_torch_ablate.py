@@ -50,6 +50,7 @@ from msgs.kernels import composite as jcomp
 from msgs_torch.kernels import ablate
 from msgs_torch.kernels import composite as tcomp
 from msgs_torch.tools import exp_fwd_ablate as port_tool
+from tests.torch_parity import one_torch_thread
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 W, H = 1920, 1080
@@ -350,8 +351,10 @@ def test_port_tool_on_cpu(jax_script):
     """The ported tool on the CPU, its stream cut to its first 64 blocks:
     the JAX script's variants in its order, each held to its plain version
     (on the CPU the wrapper is the plain version: exact, never launched),
-    and a bound from this run's work."""
-    recs = port_tool.main(["all", "--device", "cpu"], n_blocks=64)
+    and a bound from this run's work. torch runs on one thread here (the
+    tool's thousands of small CPU ops)."""
+    with one_torch_thread():
+        recs = port_tool.main(["all", "--device", "cpu"], n_blocks=64)
     assert [r["name"] for r in recs] == list(jax_script.kernels)
     for r in recs:
         assert r["launches"] == 0 and r["max_abs_err"] == 0.0 and r["exact"]

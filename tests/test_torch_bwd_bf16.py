@@ -29,6 +29,7 @@ from msgs_torch.kernels import composite as tcomp
 from msgs_torch.kernels import rasterize as trast
 from tests.helpers import make_scene
 from tests.test_rasterize import _assert_bf16_grad_close
+from tests.test_torch_cuda import _edge_subs, _staggered_subs
 from tests.test_torch_composite_bwd import _static, _stream
 from tests.torch_parity import cameras, t
 
@@ -38,8 +39,10 @@ BG = np.array([0.2, 0.3, 0.4], np.float32)
 NAMES = ["means", "scales", "quats", "opac", "shs", "probe"]
 
 
-@pytest.mark.parametrize("image_only", [False, True])
-def test_bwd_bf16_plain_matches_jax(image_only):
+@functools.lru_cache(maxsize=None)
+def _jax_bwd_bf16(image_only):
+    """The stream, its cotangent (seed 11) and jax.vjp of the Pallas
+    compositor with bwd_bf16=True (interpret mode) as (rows, 12)."""
     payload, b = _stream()
     T = _static(b)[0]
     cot = np.random.default_rng(11).normal(
@@ -50,6 +53,12 @@ def test_bwd_bf16_plain_matches_jax(image_only):
                                   *_static(b), image_only, True),
         jnp.asarray(payload))
     want = np.asarray(vjp(jnp.asarray(cot))[0]).reshape(-1, 12)
+    return payload, b, cot, structure, want
+
+
+@pytest.mark.parametrize("image_only", [False, True])
+def test_bwd_bf16_plain_matches_jax(image_only):
+    payload, b, cot, structure, want = _jax_bwd_bf16(image_only)
     last = tcomp.F_B if image_only else tcomp.F_PSIZE
     for fn in (tcomp.composite, tcomp.composite_reference):
         p = t(payload).requires_grad_()
@@ -63,6 +72,95 @@ def test_bwd_bf16_plain_matches_jax(image_only):
                                        atol=2e-3 * scale + 1e-6,
                                        err_msg=f"{fn.__name__} col {c}")
         assert (got[:, last + 1:] == 0).all()
+
+
+def _handmade_stream(subs, width, height):
+    """Hand-made sub-blocks (subs[t]: tile t's, 32 rows each) in the JAX
+    compositor's layout: payload blocks of 128 rows padded with zero rows
+    to whole groups of 128 sub-blocks, sub_tile, sub_valid and
+    tile_last_sub as binning makes them (an empty tile points at the
+    sub-block before it)."""
+    tx = (width + 15) // 16
+    tiles = tx * ((height + 15) // 16)
+    assert len(subs) == tiles
+    n = sum(len(s) for s in subs)
+    s_cap = -(-n // 128) * 128
+    payload = np.zeros((s_cap * 32, 12), np.float32)
+    payload[:n * 32] = np.concatenate([b for s in subs for b in s])
+    counts = np.array([len(s) for s in subs])
+    ends = np.cumsum(counts)
+    sub_tile = np.full(s_cap, np.flatnonzero(counts)[-1], np.int32)
+    sub_tile[:n] = np.repeat(np.arange(tiles), counts)
+    sub_valid = (np.arange(s_cap) < n).astype(np.int32)
+    tile_last_sub = np.maximum(ends - 1, 0).astype(np.int32)
+    return (payload.reshape(-1, 128, 12), (sub_tile, sub_valid,
+                                           tile_last_sub),
+            (tiles, tx, width, height))
+
+
+# The card tests' hand-made streams for kernel 4b (tests/test_torch_cuda.py):
+# partial edge tiles, empty tiles, a tile saturating in its first
+# sub-block; one tile whose pixels saturate at 256 different sub-blocks.
+_HANDMADE = {"edges": (_edge_subs, 40, 24), "staggered": (_staggered_subs,
+                                                          16, 16)}
+
+
+@pytest.mark.parametrize("stream", list(_HANDMADE))
+def test_tile_sub_ranges_handmade(stream):
+    """tile_sub_ranges, which gives kernel 4b each tile's sub-blocks, on
+    the hand-made layouts: each tile's first sub-block and count as built,
+    0 for an empty tile, and no padding sub-block owned."""
+    recipe, width, height = _HANDMADE[stream]
+    subs = recipe()
+    _, (sub_tile, sub_valid, last), static = _handmade_stream(subs, width,
+                                                             height)
+    first, n_sub = tcomp.tile_sub_ranges(t(sub_tile), t(sub_valid), t(last),
+                                         static[0])
+    counts = np.array([len(s) for s in subs])
+    np.testing.assert_array_equal(n_sub.numpy(), counts)
+    starts = np.cumsum(counts) - counts
+    live = counts > 0
+    np.testing.assert_array_equal(first.numpy()[live], starts[live])
+
+
+@pytest.mark.parametrize("image_only", [False, True])
+@pytest.mark.parametrize("stream", list(_HANDMADE))
+def test_bwd_bf16_plain_matches_jax_handmade(stream, image_only):
+    """The plain bwd_bf16 backward, which kernel 4b is held to on the card,
+    against jax.vjp of the Pallas compositor with bwd_bf16=True
+    (interpret mode) on the card tests' hand-made streams: per column
+    within the budget above, uncomputed columns and the padding 0, and
+    nothing past the sub-block where a tile saturated."""
+    recipe, width, height = _HANDMADE[stream]
+    payload, structure, static = _handmade_stream(recipe(), width, height)
+    cot = np.random.default_rng(12).normal(
+        size=(static[0], tcomp.NOUT, tcomp.NPIX)).astype(np.float32)
+    _, vjp = jax.vjp(
+        lambda p: jcomp.composite(p, *map(jnp.asarray, structure), *static,
+                                  image_only, True), jnp.asarray(payload))
+    want = np.asarray(vjp(jnp.asarray(cot))[0]).reshape(-1, 12)
+    last = tcomp.F_B if image_only else tcomp.F_PSIZE
+    n = int(structure[1].sum())
+    for fn in (tcomp.composite, tcomp.composite_reference):
+        p = t(payload).requires_grad_()
+        out = fn(p, *map(t, structure), *static, image_only, True)
+        out.backward(t(cot))
+        got = p.grad.numpy().reshape(-1, 12)
+        for c in range(last + 1):
+            scale = np.abs(want[:, c]).max()
+            assert scale > 0, c
+            np.testing.assert_allclose(got[:, c], want[:, c], rtol=0,
+                                       atol=2e-3 * scale + 1e-6,
+                                       err_msg=f"{fn.__name__} col {c}")
+        assert (got[:, last + 1:] == 0).all()
+        assert (got[n * 32:] == 0).all()
+        if stream == "edges":
+            # Tile 2 saturates in its first sub-block (sub-block 3).
+            assert (got[3 * 32:4 * 32] != 0).any()
+            assert (got[4 * 32:7 * 32] == 0).all()
+        else:
+            assert (got[255 * 32:256 * 32] != 0).any()
+            assert (got[256 * 32:258 * 32] == 0).all()
 
 
 @functools.lru_cache(maxsize=None)

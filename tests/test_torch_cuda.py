@@ -498,3 +498,222 @@ def test_bwd_ablate_unbuilt_form_raises(dev):
     with pytest.raises(ValueError, match="not built"):
         ablate.bwd_ablate(pay, st, sv, cst, "full", _ATX, _AW, _AH,
                           form=form)
+
+
+# The single-pass scan (kernels 1 and 2): one launch per call, status words
+# and tickets kept per device and stream from call to call.
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("R", [1, 7, 4])
+@pytest.mark.parametrize("E", [1, 4_095, 4_096, 4_097, 999_983])
+def test_scan_lookback_matches_plain(dev, dtype, R, E):
+    """Lengths around a chunk (4096 elements) and a prime near 10^6 (rows
+    off 16-byte boundaries); int32 rows walk up to ±(2^31 − 1) and back, so
+    chunk totals wrap."""
+    x = _rows(dtype, R, E, seed=E + R).to(dev)
+    got = scan.cumsum_rows(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, scan.cumsum_rows_plain(x))
+
+
+def test_scan_many_calls_no_stale_status(dev):
+    """Calls of shrinking and growing shapes in a row, and calls left in
+    flight on two streams at once: each equals its plain version."""
+    xs = [_rows(dt, R, E, seed=i).to(dev) for i, (dt, R, E) in enumerate(
+        [(torch.int32, 4, 300_000), (torch.float32, 1, 5_000),
+         (torch.int32, 2, 700_001), (torch.float32, 3, 2_049),
+         (torch.int32, 4, 300_000)])]
+    outs = [scan.cumsum_rows(x) for _ in range(6) for x in xs]
+    torch.cuda.synchronize()
+    for i, got in enumerate(outs):
+        assert torch.equal(got, scan.cumsum_rows_plain(xs[i % len(xs)])), i
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    torch.cuda.synchronize()
+    pending = []
+    for _ in range(8):
+        for s, x in zip(streams, (xs[0], xs[2])):
+            with torch.cuda.stream(s):
+                pending.append((x, scan.cumsum_rows(x)))
+    torch.cuda.synchronize()
+    for x, got in pending:
+        assert torch.equal(got, scan.cumsum_rows_plain(x))
+
+
+def test_scan_epoch_wrap(dev):
+    """Past the epoch limit the state's buffer is zeroed once and the
+    epochs start again at 1; the scan stays exact across the wrap. Before
+    every launch no status word (epoch | flag | value, the epoch in the top
+    30 bits) may carry the call's epoch, and the kernel must have left
+    every ticket at 0: the look-back reads a word of its own epoch as
+    ready. Long and short calls alternate, so a long call after a wrap
+    meets words of its epoch from the long call two before it unless the
+    wrap zeroed them; every call scans other values."""
+    xs = [_rows(torch.int32, *((3, 300_000) if i % 2 == 0 else (1, 5_000)),
+                seed=30 + i).to(dev) for i in range(7)]
+    key = (xs[0].device.index, torch.cuda.current_stream(dev).cuda_stream)
+    old = scan._states.get(key)
+    state = scan._states[key] = scan.LookbackState(dev, limit=3)
+    take = state.take
+
+    def checked_take(rows, length):
+        tickets, status, epoch = take(rows, length)
+        assert not bool((((status >> 34) & (2**30 - 1)) == epoch).any())
+        assert not bool(tickets.any())
+        return tickets, status, epoch
+
+    state.take = checked_take
+    try:
+        for i, x in enumerate(xs):
+            assert torch.equal(scan.cumsum_rows(x),
+                               scan.cumsum_rows_plain(x)), i
+        assert state.epoch < 3
+    finally:
+        if old is None:
+            del scan._states[key]
+        else:
+            scan._states[key] = old
+
+
+def test_scan_refuses_graph_capture(dev):
+    """A captured graph would replay one epoch: the wrapper raises."""
+    x = _rows(torch.float32, 2, 5_000, seed=4).to(dev)
+    scan.cumsum_rows(x)
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            scan.cumsum_rows(x)
+
+
+def test_scan_refuses_too_many_rows(dev):
+    with pytest.raises(RuntimeError, match="scan_f32"):
+        scan.cumsum_rows(torch.zeros((65_536, 3), device=dev))
+
+
+# The redesigned bwd_bf16 backward (kernel 4b) on hand-made streams.
+
+def _gauss_rows(rng, n, cx, cy, sig, op):
+    """n payload rows of Gaussians centred at (cx, cy) (pixels, absolute)
+    with standard deviations in `sig` and opacities in `op` (ranges)."""
+    s = rng.uniform(*sig, (n, 2))
+    th = rng.uniform(0, np.pi, n)
+    c, si = np.cos(th), np.sin(th)
+    # Conic = inverse covariance of R diag(s²) Rᵀ.
+    a, b = 1 / s[:, 0] ** 2, 1 / s[:, 1] ** 2
+    rows = np.zeros((n, comp.NFEAT), np.float32)
+    rows[:, comp.F_MX] = cx
+    rows[:, comp.F_MY] = cy
+    rows[:, comp.F_CXX] = a * c * c + b * si * si
+    rows[:, comp.F_CXY] = (a - b) * c * si
+    rows[:, comp.F_CYY] = a * si * si + b * c * c
+    rows[:, comp.F_OP] = rng.uniform(*op, n)
+    rows[:, comp.F_R:comp.F_PSIZE + 1] = rng.uniform(0.1, 4.0, (n, 5))
+    return rows
+
+
+def _handmade_args(dev, width, height, subs, image_only, seed=0):
+    """A stream of hand-made sub-blocks: subs[t] lists tile t's sub-blocks
+    (each 32 payload rows); two unowned sub-blocks follow. Returns the
+    backward's arguments with the kernel forward's output and a seeded
+    cotangent."""
+    tx = (width + 15) // 16
+    tiles = tx * ((height + 15) // 16)
+    assert len(subs) == tiles
+    rng = np.random.default_rng(seed)
+    blocks = [b for t in subs for b in t]
+    blocks += [_gauss_rows(rng, 32, 8.0, 8.0, (2, 4), (0.5, 0.9))] * 2
+    payload = torch.tensor(np.concatenate(blocks), device=dev)
+    n_sub = torch.tensor([len(t) for t in subs], dtype=torch.int32,
+                         device=dev)
+    first = (torch.cumsum(n_sub, 0) - n_sub).to(torch.int32)
+    res = comp._composite_cuda(payload, first, n_sub, tiles, tx, width,
+                               height)
+    g = torch.Generator().manual_seed(seed)
+    cot = torch.randn(res.shape, generator=g).to(dev)
+    return (payload, first, n_sub, res, cot, tiles, tx, width, height,
+            image_only)
+
+
+def _bf16_held(args):
+    """The kernel against its plain version per column; the uncomputed
+    columns and the two unowned sub-blocks at the end 0. Returns the
+    kernel's dpay as rows."""
+    got = comp._composite_bwd_bf16_cuda(*args).reshape(-1, comp.NFEAT)
+    torch.cuda.synchronize()
+    want = comp.composite_bwd_bf16_reference(*args).reshape(-1, comp.NFEAT)
+    last = comp.F_B if args[9] else comp.F_PSIZE
+    for c in range(last + 1):
+        assert want[:, c].abs().max() > 0, c
+        err = (got[:, c] - want[:, c]).abs().max().item()
+        assert err <= _bf16_budget(want[:, c]), (c, err)
+    assert bool((got[:, last + 1:] == 0).all())
+    assert bool((got[-64:] == 0).all())
+    return got
+
+
+def _edge_subs():
+    """40 × 24 pixels (3 × 2 tiles): the last tile column and row are
+    partial (8 of 16 pixels); tiles 1 and 4 have no sub-blocks; tile 2
+    saturates in its first sub-block (opaque, wide Gaussians), so its
+    other three sub-blocks are never reached. Sub-blocks per tile."""
+    rng = np.random.default_rng(1)
+    rand = lambda t, k: [_gauss_rows(
+        rng, 32, 16 * (t % 3) + rng.uniform(-4, 20, 32),
+        16 * (t // 3) + rng.uniform(-4, 20, 32), (1.5, 6), (0.1, 0.95))
+        for _ in range(k)]
+    opaque = [_gauss_rows(rng, 32, 36.0, 8.0, (60, 80), (0.99, 0.99))]
+    return [rand(0, 3), [], opaque + rand(2, 3), rand(3, 1), [],
+            rand(5, 4)]
+
+
+def _staggered_subs():
+    """One 16 × 16 tile, 258 sub-blocks: sub-block k holds 28 faint
+    Gaussians and 4 opaque ones on pixel k alone, so pixel k saturates in
+    sub-block k and the tile in sub-block 255."""
+    rng = np.random.default_rng(4)
+    subs = []
+    for k in range(258):
+        px, py = (k % 16) + 0.0, (k // 16) % 16 + 0.0
+        faint = _gauss_rows(rng, 28, rng.uniform(0, 16, 28),
+                            rng.uniform(0, 16, 28), (1.0, 3.0),
+                            (0.004, 0.008))
+        sharp = _gauss_rows(rng, 4, px, py, (0.25, 0.25), (0.99, 0.99))
+        subs.append(np.concatenate([faint, sharp]))
+    return [subs]
+
+
+@pytest.mark.parametrize("image_only", [False, True])
+def test_bwd_bf16_edges_and_empty_tiles(dev, image_only):
+    """_edge_subs: partial edge tiles, empty tiles, and a tile that
+    saturates in its first sub-block, whose later sub-blocks the kernel
+    must not reach."""
+    args = _handmade_args(dev, 40, 24, _edge_subs(), image_only, seed=2)
+    got = _bf16_held(args)
+    # Tile 2 (the opaque one) saturates in its first sub-block: its other
+    # three sub-blocks stay 0, as in the plain version.
+    res = args[3]
+    assert bool((res[2, comp.O_DONE] == 1).all())
+    first = int(args[1][2])
+    assert bool((got[(first + 1) * 32:(first + 4) * 32] == 0).all())
+    assert bool((got[first * 32:(first + 1) * 32] != 0).any())
+
+
+def test_bwd_bf16_pixels_saturate_at_different_subs(dev):
+    """_staggered_subs: the kernel matches its plain version, is
+    bit-identical on a second launch, and stops where the forward stopped:
+    sub-block 255 has gradients, 256 and 257 none."""
+    args = _handmade_args(dev, 16, 16, _staggered_subs(), True, seed=5)
+    assert bool((args[3][0, comp.O_DONE] == 1).all())
+    got = _bf16_held(args)
+    assert bool((got[255 * 32:256 * 32] != 0).any())
+    assert bool((got[256 * 32:258 * 32] == 0).all())
+    again = comp._composite_bwd_bf16_cuda(*args).reshape(-1, comp.NFEAT)
+    assert torch.equal(got, again)
+
+
+def test_bwd_bf16_build_fits_two_ctas(dev):
+    """The redesign's point: no stack frame and at least two CTAs per SM
+    (the first port had 255 registers, a stack frame and one CTA)."""
+    for image_only in (0, 1):
+        info = _build.kernel_info("msgs_composite_bwd_bf16_info", image_only)
+        assert info["stack_bytes"] == 0, info
+        assert info["ctas_per_sm"] >= 2, info

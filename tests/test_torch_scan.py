@@ -84,3 +84,27 @@ def test_pack_planes_roundtrip():
         assert_same(f[owner], tbin._unpack_field(cums, chunks[i]),
                     what=f"field {i}")
     assert_same(np.arange(cap, dtype=np.int32), iota)
+
+
+def test_lookback_state_epochs():
+    """The scan's per-stream scratch (scan.cu's tickets and status words):
+    a new epoch every call; tickets and words each grown, zeroed, when a
+    shape needs more and kept otherwise; at the epoch limit the words are
+    zeroed once and the epochs restart at 1 (the kernel never sees epoch 0
+    or the limit). Tickets are never cleared by the host: the kernel leaves
+    them at 0."""
+    st = tscan.LookbackState("cpu", limit=4)
+    tk, words, e = st.take(4, 5000)            # 4 rows · 2 chunks
+    assert e == 1 and tk.numel() == 4 and words.numel() == 8
+    assert (tk == 0).all() and (words == 0).all()
+    words.fill_(7)                             # what a kernel leaves behind
+    tk2, words2, e = st.take(7, 4096)          # more rows, fewer words
+    assert e == 2 and tk2.numel() == 7 and (tk2 == 0).all()
+    assert words2 is words and (words2 == 7).all()
+    tk3, words3, e = st.take(3, 20_000)        # 3 · 5 words: new
+    assert e == 3 and tk3 is tk2 and words3.numel() == 15
+    assert (words3 == 0).all()
+    words3.fill_(7)
+    _, words4, e = st.take(3, 20_000)          # epoch 4 is the limit: wrap
+    assert e == 1 and words4 is words3 and (words4 == 0).all()
+    assert st.take(1, 1)[2] == 2

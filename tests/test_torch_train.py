@@ -22,7 +22,7 @@ from msgs_torch.model.gaussians import GaussianConfig as TConfig
 from msgs_torch.train import loop as tloop
 from msgs_torch.train.optimizer import OptimParams as TOptim
 from msgs_torch.train.optimizer import group_lrs
-from tests.torch_parity import assert_same, cameras
+from tests.torch_parity import assert_same, cameras, one_torch_thread
 
 CAP, H, W, N = 256, 64, 64, 96
 OPTIM = dict(position_lr_init=1.6e-3, position_lr_final=1.6e-4)
@@ -174,13 +174,15 @@ def test_training_reduces_loss():
     gts = _targets(cams)
     state = tloop.train_state_from_numpy(start, device="cpu")
     losses = []
-    for it in range(60):
-        state, m = tloop.train_step(
-            state, cams[it % 3], gts[it % 3],
-            cfg=TConfig(sh_degree=1, capacity=CAP), op=TOptim(**OPTIM),
-            settings=TSettings(entry_cap=1 << 12), reso_lvl=0,
-            spatial_lr_scale=1.0)
-        losses.append(float(m["loss"]))
+    # 60 steps of small ops: torch on one thread (one_torch_thread).
+    with one_torch_thread():
+        for it in range(60):
+            state, m = tloop.train_step(
+                state, cams[it % 3], gts[it % 3],
+                cfg=TConfig(sh_degree=1, capacity=CAP), op=TOptim(**OPTIM),
+                settings=TSettings(entry_cap=1 << 12), reso_lvl=0,
+                spatial_lr_scale=1.0)
+            losses.append(float(m["loss"]))
     first, last = np.mean(losses[:6]), np.mean(losses[-6:])
     assert np.isfinite(last)
     assert last < 0.6 * first, (first, last)

@@ -2,6 +2,8 @@
 from a seed, go through the JAX package and through msgs_torch on the CPU."""
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -11,6 +13,20 @@ from msgs_torch.core.camera import make_camera_from_matrices
 # The JAX suite's own budgets (tests/test_rasterize.py).
 TOL_IMAGE = 1e-5     # image, transmittance, pixel sizes
 TOL_DEPTH = 1e-4     # depth, acc_pixel_size
+
+
+@contextlib.contextmanager
+def one_torch_thread():
+    """torch's CPU ops on one thread for the duration. A test whose time
+    goes into thousands of small ops runs them without OpenMP's fork and
+    join, which, when the suite's workers share the cores, can take longer
+    than the ops themselves."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 def rotation(seed: int, angle: float = 0.2) -> np.ndarray:
