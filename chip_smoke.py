@@ -6,9 +6,10 @@ Builds the CUDA kernels from msgs_torch/csrc (into build/msgs_torch/), then:
 
   1. device: the card, and its name and power limit from nvidia-smi;
   2. build: the kernel build time and ptxas's register / shared-memory use;
-     for the scan (kernels 1, 2) and the bf16 backward (4b), the runtime's
-     registers, stack, static and dynamic shared memory and CTAs per SM
-     (cudaFuncGetAttributes, cudaOccupancyMaxActiveBlocksPerMultiprocessor);
+     for the scan (kernels 1, 2) and the compositor (3, 4, 4b), the
+     runtime's registers, stack, static and dynamic shared memory and CTAs
+     per SM (cudaFuncGetAttributes,
+     cudaOccupancyMaxActiveBlocksPerMultiprocessor);
   3. kernels vs plain: each kernel against its plain PyTorch version on the
      card at the main path's shapes (scans exact, also at lengths around a
      chunk and a prime near 10^6; compositor forward image and T ≤ 1e-5,
@@ -59,7 +60,11 @@ Builds the CUDA kernels from msgs_torch/csrc (into build/msgs_torch/), then:
      then held against its plain version (BF16_BUDGET per column) on the
      last stream the run gave it at each image size, and on the streams of
      one train_step of the final state at each of COARSE_LVLS. Kernels 3,
-     4b and 4 are timed on the run's last 512² stream, and kernels 1 and 2
+     4b and 4 are timed on the run's last 512² stream (CUDA events, and
+     the profiler's device time from a fresh process's trace of the same
+     calls on the same inputs; traces in this process, in turns with and
+     without idle time padding their window, are printed beside it: late
+     in a long process traces lose events), and kernels 1 and 2
      at every shape the run scanned (exact, then timed as in item 3), with
      Σ calls × (ms − bound) per scan kernel.
   9. tools: the ported gather experiments (msgs_torch.tools.exp_gather and
@@ -143,31 +148,43 @@ REF_ENTRIES = 1_287_253       # BENCH_r05.json detail.n_entries (TPU run)
 # tensor-core) operations/s.
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
-# fp32 operations per (entry, pixel) pair in composite_fwd.cu, counted from
-# the source: 2 tile-local offsets, 2 pixel offsets, 9 for the power, 4 for
-# expf, 1 for o·g, 5 for the mask, clamp and 1−α, ~4 for the prefix
-# product, 1+1+1 for t_after and alive, 3 for w, 10 for the five
-# multiply-adds, 2 for the T minimum.
-OPS_PER_PAIR = 46
-# composite_bwd.cu recomputes the forward's 46 and adds, per pair, with NF
-# colour columns (5, or 3 under image_only): 2·NF−1 for φ, 3 for T_i, T_i·φ
-# and w·φ, ~4 for the w·φ prefix (129 adds per 32 entries), 9 for dα and
-# dpower, 5 for the moment terms (dp·x and dp·y, then dp·x·x, dp·x·y and
-# dp·y·y), NF for w·g_c, and one add per reduced quantity (6 + NF) for the butterfly (31
-# adds per 32 entries × 32 pixels). The same count as
-# msgs_torch/tools/exp_fwd_ablate.py bwd_ops.
-OPS_PER_PAIR_BWD = {nf: OPS_PER_PAIR + (2 * nf - 1) + 3 + 4 + 9 + 5 + nf
-                    + 6 + nf for nf in (3, 5)}
+# Idle host time at both ends of trace_window's padded traces.
+TRACE_PAD_S = 0.02
+# chip_smoke.py's own argument for fresh_device_ms's child process.
+FRESH_FLAG = "--trainer-device-ms"
+# fp32 operations per (entry, pixel) pair that the compositor needs for
+# its outputs' bits: each add, multiply, min, compare, and the and of two
+# compares; a select of one of two values is not counted, nor are terms
+# made once per entry or once per pixel and sub-block (under 1/8 of an
+# operation a pair). What a backward recomputes, as composite_fwd.cu does
+# it: 2 pixel offsets, 9 for the power, 4 for expf, 1 for o·g, 5 for the
+# mask's two compares and their and, the clamp and 1−α, ~4 for the prefix
+# product (129 products per 32 entries), 3 for t_after and alive (a
+# product, a compare, an and), 2 for w (α·T·cum_excl, which alive
+# selects), 1 for the T minimum.
+RECOMPUTE_PER_PAIR = 2 + 9 + 4 + 1 + 5 + 4 + 3 + 2 + 1         # 31
+# The forward adds 10 for the five colour multiply-adds.
+OPS_PER_PAIR = RECOMPUTE_PER_PAIR + 10                        # 41
+# composite_bwd.cu adds, with NF colour columns (5, or 3 under
+# image_only): 2·NF−1 for φ, 3 for T_i, T_i·φ and w·φ, ~4 for the w·φ
+# prefix (129 adds per 32 entries), 7 for dα and dpower (S's add and
+# subtract, the divide, T_i·φ − S/(1−α), the and of alive and the mask, the
+# compare α_raw < 0.99, dα·α; the 0/1 factors are selects), 5 for the
+# moment terms (dp·x and dp·y, then dp·x·x, dp·x·y and dp·y·y), NF for
+# w·g_c, and one add per pair for each of the 6 + NF per-entry sums. (The
+# ablation kernels keep the first port's per-pair offsets and 0/1
+# multiplies, and msgs_torch/tools/exp_fwd_ablate.py counts them so.)
+OPS_PER_PAIR_BWD = {nf: RECOMPUTE_PER_PAIR + (2 * nf - 1) + 3 + 4 + 7 + 5
+                    + nf + 6 + nf for nf in (3, 5)}           # 67, 75
 STEPS = 20                    # full-width train steps
 PEAK_BF16 = 989e12            # dense bf16 tensor-core FLOP/s
-# composite_bwd_bf16.cu, per (entry, pixel) pair before saturation: the
-# forward's 46 recomputed, then on the fp32 units 2·NF−1 for φ and NF bf16
-# roundings of its operands, 3 for T_i, T_i·φ and w·φ, 1 rounding of w·φ,
-# ~4 for its prefix, 9 for dα and dpower, 4 for dx and dy, 2 for dp·dx and
-# dp·dy, 4 roundings when staging; on the tensor cores 4 matrices × 8
-# columns × 2 flops.
-OPS_PER_PAIR_BWD_BF16 = {nf: OPS_PER_PAIR + (2 * nf - 1) + nf + 3 + 1 + 4
-                         + 9 + 4 + 2 + 4 for nf in (3, 5)}
+# composite_bwd_bf16.cu adds to the recompute, on the fp32 units, 2·NF−1
+# for φ and NF bf16 roundings of its operands, 3 for T_i, T_i·φ and w·φ, 1
+# rounding of w·φ, ~4 for its prefix, 7 for dα and dpower (as the exact
+# backward's), 4 for dx and dy, 2 for dp·dx and dp·dy, 4 roundings when
+# staging; on the tensor cores 4 matrices × 8 columns × 2 flops.
+OPS_PER_PAIR_BWD_BF16 = {nf: RECOMPUTE_PER_PAIR + (2 * nf - 1) + nf + 3 + 1
+                         + 4 + 7 + 4 + 2 + 4 for nf in (3, 5)}  # 64, 70
 MMA_FLOPS_PER_PAIR = 4 * 8 * 2
 # The bf16 kernel vs its plain version, per column, relative to the
 # column's largest value: the two differ in the order of f32 sums and in
@@ -259,7 +276,7 @@ def phase_build():
             print(f"[build]   {name}: "
                   f"{line.split(':', 1)[1].strip()}; {stack}")
             name = None
-    # The scan's and the bf16 backward's builds as the runtime reports them.
+    # The redesigned kernels' builds as the runtime reports them.
     for label, entry, arg in KERNEL_INFO:
         i = _build.kernel_info(entry, arg)
         print(f"[build] {label}: {i['registers']} registers, "
@@ -271,6 +288,11 @@ def phase_build():
 # (label, msgs_*_info entry, argument) of the kernels [build] reads back.
 KERNEL_INFO = (("scan_lookback<float> (kernel 1)", "msgs_scan_info", 0),
                ("scan_lookback<int32> (kernel 2)", "msgs_scan_info", 1),
+               ("composite_fwd (kernel 3)", "msgs_composite_fwd_info", 0),
+               ("composite_bwd image_only (kernel 4)",
+                "msgs_composite_bwd_info", 1),
+               ("composite_bwd all columns (kernel 4)",
+                "msgs_composite_bwd_info", 0),
                ("composite_bwd_bf16 image_only (kernel 4b)",
                 "msgs_composite_bwd_bf16_info", 1),
                ("composite_bwd_bf16 all columns (kernel 4b)",
@@ -315,7 +337,8 @@ def device_ms(fn, kernel: str, reps: int = 5, tries: int = 3):
     traces of reps calls of fn. A trace can lose events, at times all of
     them: one that kept none of `kernel`'s is taken again, up to `tries`
     traces. Every trace taken is returned, by kernel; (None, 0) if none
-    kept an event of `kernel`."""
+    kept an event of `kernel`. Late in a long process traces lose events
+    (PERF.md §7; trace_window, fresh_device_ms)."""
     from msgs_torch.tools import trace_ms
     traces = []
     for _ in range(tries):
@@ -324,6 +347,40 @@ def device_ms(fn, kernel: str, reps: int = 5, tries: int = 3):
         if rec:
             return rec["ms"], rec["events"], traces
     return None, 0, traces
+
+
+def trace_window(fn, kernel: str, reps: int = 5, pairs: int = 3) -> dict:
+    """Whether the profiler's window loses device events: traces of fn in
+    turns without and with TRACE_PAD_S of idle host time at both ends of
+    the window. Per trace: the events of `kernel` it kept, the
+    cudaLaunchKernel records it kept, the µs from each kept event's launch
+    to its start (least, most), and the µs from the last kept event's end
+    to the window's end. Events that fall outside the window on the host's
+    clock would be kept by the padded traces alone. Returns {"plain":
+    [...], "padded": [...]}."""
+    from msgs_torch.tools import kernel_name, trace_events
+    out = {"plain": [], "padded": []}
+    for _ in range(pairs):
+        for key, pad in (("plain", 0.0), ("padded", TRACE_PAD_S)):
+            ev = trace_events(fn, reps, pad)
+            win = [e for e in ev if e.get("cat") == "Trace"]
+            launch = {e["args"]["correlation"]: e["ts"] for e in ev
+                      if e.get("cat") == "cuda_runtime"
+                      and e.get("name", "").startswith("cudaLaunchKernel")
+                      and "correlation" in e.get("args", {})}
+            ks = [e for e in ev if e.get("ph") == "X"
+                  and e.get("cat") == "kernel" and kernel_name(e) == kernel]
+            gaps = [e["ts"] - launch[e["args"]["correlation"]] for e in ks
+                    if e.get("args", {}).get("correlation") in launch]
+            tail = (win[0]["ts"] + win[0]["dur"]
+                    - max(e["ts"] + e["dur"] for e in ks)
+                    if ks and win else None)
+            out[key].append(dict(
+                events=len(ks), launches=len(launch),
+                launch_to_start_us=[round(min(gaps), 1), round(max(gaps), 1)]
+                if gaps else None,
+                tail_us=None if tail is None else round(tail, 1)))
+    return out
 
 
 def ms_text(ms) -> str:
@@ -459,23 +516,30 @@ def composite_check(label, dev, stream, width, height, timed: bool):
     dev_ms = device_ms(lambda: comp._composite_cuda(*args),
                        "composite_fwd_kernel")[0]
     plain = median_ms(lambda: comp._composite_plain(*args), 3, warmup=1)
-    work_subs = int(n_work)
-    pairs = work_subs * 32 * 256
+    t0 = time.perf_counter()
+    work_subs, strips = saturation_work(stream, width, height)
+    count_s = time.perf_counter() - t0
+    check(work_subs == int(n_work),
+          f"composite_fwd {label}: {work_subs} sub-blocks before saturation "
+          f"against the plain forward's {int(n_work)}")
+    pairs = strips * 32 * 32
     nbytes = work_subs * 32 * 12 * 4 + tiles * 2 * 4 + tiles * 8 * 256 * 4
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = pairs * OPS_PER_PAIR / PEAK_FP32 * 1e3
     print(f"[kernels] composite_fwd {label}: kernel {ms:.4f} ms (device "
           f"{ms_text(dev_ms)}), plain "
           f"{plain:.4f} ms; {int(n_sub.sum())} valid sub-blocks, "
-          f"{work_subs} before saturation, {pairs} pairs; bound "
-          f"{max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f}, operations "
-          f"{t_ops:.4f})", flush=True)
+          f"{work_subs} before saturation, {strips} of the "
+          f"{8 * work_subs} warp-sub-blocks before their strip is done "
+          f"(counted in {count_s:.3f} s), {pairs} pairs; "
+          f"bound {max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f}, "
+          f"operations {t_ops:.4f})", flush=True)
     return dict(ms=ms, plain_ms=plain, library_ms=None,
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 max_abs_err=max(errs[c] for c in ("r", "g", "b", "T")),
                 valid_subs=int(n_sub.sum()), work_subs=work_subs,
-                extra=dict(device_ms=dev_ms))
+                extra=dict(device_ms=dev_ms, warp_subs=strips))
 
 
 def grad_budget(want) -> float:
@@ -483,17 +547,46 @@ def grad_budget(want) -> float:
     return 3e-5 * max(float(want.abs().max()), 1e-8) + 1e-6
 
 
-def bwd_work(stream, width, height):
-    """A backward's work on this stream: (sub-blocks before saturation,
-    (entry, pixel) pairs, ms to move its bytes — payload and dpay of those
-    sub-blocks, forward output and cotangent, tile ranges)."""
+def saturation_work(stream, width, height) -> tuple:
+    """(sub-blocks before each tile saturates, warp-sub-blocks before each
+    32-pixel strip of a tile is done) on this stream, from one pass of the
+    plain forward's T and done. Every 32-entry sub-block a tile reaches
+    before all 256 of its pixels are done is read; the (entry, pixel)
+    pairs the compositor needs are the strip count × 32 × 32, as a done
+    pixel adds nothing (kernel 3's warps walk exactly those, and kernels 4
+    and 4b skip a done strip's pairs)."""
     from msgs_torch.kernels import composite as comp
     payload, first, n_sub, tiles, tx = stream
-    n_work = int(comp._composite_plain(payload, first, n_sub, tiles, tx,
-                                       width, height)[1])
+    dev = payload.device
+    feats = payload.reshape(-1, comp.SUB, comp.NFEAT)
+    state = comp._init_state(tiles, tx, width, height, dev)
+    t_run = state[:, comp.O_T].clone()
+    done_run = state[:, comp.O_DONE].clone()
+    ox, oy = comp._tile_origin(tiles, tx, dev)
+    n_tile = torch.zeros((), dtype=torch.long, device=dev)
+    n_strip = torch.zeros((), dtype=torch.long, device=dev)
+    for d, tid in enumerate(comp._active_tiles(n_sub, tiles)):
+        open_ = done_run[tid].reshape(len(tid), -1, 32).amin(-1) == 0
+        n_tile = n_tile + open_.any(-1).sum()
+        n_strip = n_strip + open_.sum()
+        t_in = t_run[tid][:, None, :]
+        done = done_run[tid][:, None, :]
+        sub = comp._sub_forward(feats[first[tid].long() + d], ox[tid],
+                                oy[tid], t_in, done)
+        t_run[tid], done_run[tid] = comp._advance(sub, t_in, done)
+    return int(n_tile), int(n_strip)
+
+
+def bwd_work(stream, width, height):
+    """A backward's work on this stream: (sub-blocks before saturation,
+    (entry, pixel) pairs before each strip is done, ms to move its bytes —
+    payload and dpay of those sub-blocks, forward output and cotangent,
+    tile ranges)."""
+    n_work, strips = saturation_work(stream, width, height)
+    tiles = stream[3]
     nbytes = 2 * n_work * 32 * 12 * 4 + 2 * tiles * 8 * 256 * 4 \
         + tiles * 2 * 4
-    return n_work, n_work * 32 * 256, nbytes / PEAK_BYTES * 1e3
+    return n_work, strips * 32 * 32, nbytes / PEAK_BYTES * 1e3
 
 
 def composite_bwd_check(label, dev, stream, width, height, timed: bool):
@@ -671,41 +764,84 @@ def composite_bwd_bf16_check(label, dev, stream, width, height,
     return recs.get(True)
 
 
-def trainer_stream_times(args) -> dict:
-    """Kernels 3, 4b (and, for comparison, 4) on one of the trainer's kept
-    streams: CUDA-event and device ms, and each
-    bound, counted as in [kernels]."""
+def trainer_kernels(args) -> list:
+    """(name, call) of kernels 3, 4b and 4 on a kept trainer stream."""
     from msgs_torch.kernels import composite as comp
     payload, first, n_sub, res, cot, tiles, tx, width, height, io = args
-    fwd = lambda: comp._composite_cuda(payload, first, n_sub, tiles, tx,
-                                       width, height)
-    bf16 = lambda: comp._composite_bwd_bf16_cuda(*args)
+    return [("composite_fwd", lambda: comp._composite_cuda(
+                payload, first, n_sub, tiles, tx, width, height)),
+            ("composite_bwd_bf16",
+             lambda: comp._composite_bwd_bf16_cuda(*args)),
+            ("composite_bwd", lambda: comp._composite_bwd_cuda(*args))]
+
+
+def fresh_device_ms(args) -> dict:
+    """trainer_kernels' device times ({name: {"ms", "events"} or None})
+    from traces taken in a fresh process (chip_smoke.py FRESH_FLAG FILE),
+    on the same inputs saved to FILE. Its launches do not count."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "stream.pt")
+        torch.save([a.cpu() if isinstance(a, torch.Tensor) else a
+                    for a in args], path)
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            FRESH_FLAG, path], capture_output=True,
+                           text=True, timeout=600)
+    check(r.returncode == 0, f"fresh_device_ms: rc {r.returncode}: "
+          f"{r.stderr[-2000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def fresh_device_child(path) -> int:
+    """fresh_device_ms's child: one trace of 5 calls of each kernel."""
+    from msgs_torch.tools import trace_ms
+    args = [a.cuda() if isinstance(a, torch.Tensor) else a
+            for a in torch.load(path)]
+    print(json.dumps({name: trace_ms(fn, 5).get(name + "_kernel")
+                      for name, fn in trainer_kernels(args)}))
+    return 0
+
+
+def trainer_stream_times(args) -> dict:
+    """Kernels 3, 4b (and, for comparison, 4) on one of the trainer's kept
+    streams: CUDA-event ms, device ms from a fresh process's traces
+    (fresh_device_ms), and each bound, counted as in [kernels]. Traces in
+    this process, padded and not (trace_window), are printed beside them:
+    late in the run they lose events (PERF.md §7)."""
+    payload, first, n_sub, res, cot, tiles, tx, width, height, io = args
     n_work, pairs, t_bytes = bwd_work(args[:3] + args[5:7], width, height)
     nf = 3 if io else 5
     fwd_bytes = (n_work * 32 * 12 * 4 + tiles * 2 * 4
                  + tiles * 8 * 256 * 4) / PEAK_BYTES * 1e3
-    out = {
-        "composite_fwd": dict(
-            ms=median_ms(fwd, 20),
-            device_ms=device_ms(fwd, "composite_fwd_kernel")[0],
-            bound_ms=max(fwd_bytes, pairs * OPS_PER_PAIR / PEAK_FP32 * 1e3)),
-        "composite_bwd_bf16": dict(
-            ms=median_ms(bf16, 20),
-            device_ms=device_ms(bf16, "composite_bwd_bf16_kernel")[0],
-            bound_ms=max(t_bytes,
-                         pairs * OPS_PER_PAIR_BWD_BF16[nf] / PEAK_FP32 * 1e3,
-                         pairs * MMA_FLOPS_PER_PAIR / PEAK_BF16 * 1e3)),
-        "composite_bwd": dict(
-            ms=median_ms(lambda: comp._composite_bwd_cuda(*args), 20),
-            bound_ms=max(t_bytes,
-                         pairs * OPS_PER_PAIR_BWD[nf] / PEAK_FP32 * 1e3)),
+    bounds = {
+        "composite_fwd": max(fwd_bytes,
+                             pairs * OPS_PER_PAIR / PEAK_FP32 * 1e3),
+        "composite_bwd_bf16": max(
+            t_bytes, pairs * OPS_PER_PAIR_BWD_BF16[nf] / PEAK_FP32 * 1e3,
+            pairs * MMA_FLOPS_PER_PAIR / PEAK_BF16 * 1e3),
+        "composite_bwd": max(t_bytes,
+                             pairs * OPS_PER_PAIR_BWD[nf] / PEAK_FP32 * 1e3),
     }
+    fresh = fresh_device_ms(args)
+    out = {}
+    for name, fn in trainer_kernels(args):
+        win = trace_window(fn, name + "_kernel")
+        rec = fresh.get(name) or {}
+        out[name] = dict(ms=median_ms(fn, 20), device_ms=rec.get("ms"),
+                         device_events=rec.get("events", 0),
+                         bound_ms=bounds[name],
+                         in_process_traces=win)
+        print(f"[trainer] {name} at {width}x{height}: a fresh process's "
+              f"trace of 5 calls kept {rec.get('events', 0)} events; in "
+              f"this process, traces of 5 calls in turns without and with "
+              f"{TRACE_PAD_S} s of idle time at both ends of the window: "
+              f"{json.dumps(win)}", flush=True)
     print(f"[trainer] kernels on the trainer's {width}x{height} stream "
           f"({tiles} tiles, {int(n_sub.sum())} sub-blocks, {n_work} before "
-          f"saturation, image_only={io}): " + "; ".join(
-              f"{k} {v['ms']:.4f} ms (device "
-              f"{ms_text(v.get('device_ms'))}), bound {v['bound_ms']:.4f}"
-              for k, v in out.items()), flush=True)
+          f"saturation, {pairs} pairs before each strip is done, "
+          f"image_only={io}): " + "; ".join(
+              f"{k} {v['ms']:.4f} ms (device {ms_text(v['device_ms'])}), "
+              f"bound {v['bound_ms']:.4f}" for k, v in out.items()),
+          flush=True)
     return out
 
 
@@ -1815,6 +1951,8 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == [FRESH_FLAG]:
+        return fresh_device_child(sys.argv[2])
     t_start = time.perf_counter()
     dev, smi_line = phase_device()
     phase_build()

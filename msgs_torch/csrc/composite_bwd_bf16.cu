@@ -59,9 +59,10 @@
 //
 // The kernel is deterministic: every sum runs in a fixed order, no atomics.
 // The wrapper zeroes dpay, so the rows of skipped sub-blocks and the
-// uncomputed columns read 0. The exact kernel (composite_bwd.cu) can take
-// the same shape: the lane-per-entry walk with f32 operands and its six raw
-// moments in place of the bf16 ones.
+// uncomputed columns read 0. The exact kernel (composite_bwd.cu) has the
+// same shape, with f32 operands, its six raw moments, and each per-entry
+// sum in the tree of the first port's butterfly, so its output keeps that
+// port's bits.
 #include <cuda_bf16.h>
 
 #include "composite_common.cuh"

@@ -47,6 +47,8 @@ _SIGNATURES = {
     # (int32 instance or image_only, int out[5]): the kernel's registers,
     # stack, static and dynamic shared memory, CTAs per SM
     "msgs_scan_info": [_I, _P],
+    "msgs_composite_fwd_info": [_I, _P],
+    "msgs_composite_bwd_info": [_I, _P],
     "msgs_composite_bwd_bf16_info": [_I, _P],
     # (payload, first_sub, n_sub, out, tiles, tiles_x, width, height, stream)
     "msgs_composite_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],

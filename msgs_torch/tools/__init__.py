@@ -64,33 +64,48 @@ def time_ms(fn, dev: torch.device, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def trace_ms(fn, reps: int = 5) -> dict:
-    """The device side of fn from a torch.profiler trace of `reps` calls,
-    after one untraced call: {kernel: {"ms": mean device ms of its events,
-    "events": n}}. A kernel is named as the trace names it, without its
-    return type, namespace, template arguments and parameters; memsets are
-    "memset". A trace can lose events: n below reps × the launches of one
-    call shows the loss."""
+def trace_events(fn, reps: int = 5, pad_s: float = 0.0) -> list:
+    """The chrome-trace events of a torch.profiler trace of `reps` calls
+    of fn, after one untraced call. pad_s seconds of idle host time open
+    the profiler's window before the first call and close it after the
+    last call has finished on the card."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
+        time.sleep(pad_s)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+        time.sleep(pad_s)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
-            events = json.load(f)["traceEvents"]
+            return json.load(f)["traceEvents"]
+
+
+def kernel_name(e: dict) -> str:
+    """A device event's kernel as trace_ms names it: without its return
+    type, namespace, template arguments and parameters; memsets are
+    "memset"."""
+    if e.get("cat") == "gpu_memset":
+        return "memset"
+    return re.split(r"[<(]", re.sub(r"^void |\(anonymous namespace\)::", "",
+                                    e["name"]))[0].split("::")[-1]
+
+
+def trace_ms(fn, reps: int = 5) -> dict:
+    """The device side of fn from a torch.profiler trace of `reps` calls
+    (trace_events): {kernel: {"ms": mean device ms of its events,
+    "events": n}}, kernels named by kernel_name. A trace can lose events:
+    n below reps × the launches of one call shows the loss."""
     total, count = {}, {}
-    for e in events:
+    for e in trace_events(fn, reps):
         if e.get("ph") != "X" or e.get("cat") not in ("kernel", "gpu_memset"):
             continue
-        name = "memset" if e["cat"] == "gpu_memset" else re.split(
-            r"[<(]", re.sub(r"^void |\(anonymous namespace\)::", "",
-                            e["name"]))[0].split("::")[-1]
+        name = kernel_name(e)
         total[name] = total.get(name, 0.0) + e["dur"] / 1e3
         count[name] = count.get(name, 0) + 1
     return {k: {"ms": total[k] / count[k], "events": count[k]}

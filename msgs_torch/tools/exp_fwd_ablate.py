@@ -54,7 +54,9 @@ PEAK_FP32 = 67e12
 # fp32 operations per (entry, pixel) pair, counted from the sources (each
 # add, multiply, compare, select, min and max 1; expf 4):
 #   composite_sub (composite_common.cuh), the tile variants and no_states:
-#   46, kernel 3's count (chip_smoke.py OPS_PER_PAIR);
+#   46, the first port's kernel 3 count (chip_smoke.py OPS_PER_PAIR now
+#   counts what the compositor needs, without selects or per-pair
+#   tile-local means: 41);
 #   the pairs variants' α: 2 offsets, 9 for the power, expf, o·g, 3 for the
 #   mask, the clamp and the select: 21; the prefix product and w 9 (1 − α,
 #   ~4 multiplies, the compare and its select, 2 multiplies); the colour

@@ -5,7 +5,9 @@ import functools
 
 import jax.numpy as jnp
 import numpy as np
+import torch
 
+import chip_smoke
 from msgs.kernels import composite as jcomp
 from msgs.kernels.binning import BLOCK, bin_gaussians
 from msgs.kernels.preprocess import preprocess as jax_preprocess
@@ -80,3 +82,32 @@ def test_tile_sub_ranges():
         assert (b["sub_valid"][subs] == 1).all()
         assert subs[-1] == b["tile_last_sub"][tile]
     assert nsub.sum() == b["sub_valid"].sum()
+
+
+def test_saturation_work_counts():
+    """chip_smoke.py's one-pass count of the compositor's work, which its
+    bounds for kernels 3, 4 and 4b are made of, against the plain forward:
+    the tiles' sub-blocks before saturation are _composite_plain's n_work,
+    and the warp-sub-blocks sum, at each depth k, the 32-pixel strips still
+    open in the plain forward cut after k sub-blocks. 5,000 splats, so
+    that tiles and strips saturate before their last sub-block."""
+    W, H = 88, 72
+    payload, b = _stream(W, H, 5000, seed=W)
+    tx = (W + 15) // 16
+    T = tx * ((H + 15) // 16)
+    first, nsub = tcomp.tile_sub_ranges(t(b["sub_tile"]), t(b["sub_valid"]),
+                                        t(b["tile_last_sub"]), T)
+    pay = t(payload)
+    n_tile, n_strip = chip_smoke.saturation_work((pay, first, nsub, T, tx),
+                                                 W, H)
+    assert n_tile == int(tcomp._composite_plain(pay, first, nsub, T, tx, W,
+                                                H)[1])
+    want = 0
+    for k in range(int(nsub.max())):
+        st = tcomp._composite_plain(pay, first, torch.clamp(nsub, max=k), T,
+                                    tx, W, H)[0]
+        open_ = st[:, tcomp.O_DONE].reshape(T, -1, 32).amin(-1) == 0
+        want += int((open_ & (nsub > k)[:, None]).sum())
+    assert n_strip == want
+    assert n_tile < int(nsub.sum())
+    assert 0 < n_strip < 8 * n_tile

@@ -717,3 +717,86 @@ def test_bwd_bf16_build_fits_two_ctas(dev):
         info = _build.kernel_info("msgs_composite_bwd_bf16_info", image_only)
         assert info["stack_bytes"] == 0, info
         assert info["ctas_per_sm"] >= 2, info
+
+
+# The redesigned compositor forward (kernel 3) and exact backward (kernel
+# 4) on the same hand-made streams.
+
+def _fwd_held(args):
+    """Kernel 3 against its plain version within the forward budgets of
+    test_composite_kernel_matches_plain (T and done exact). Returns the
+    kernel's output."""
+    payload, first, n_sub, _, _, tiles, tx, width, height, _ = args
+    got = comp._composite_cuda(payload, first, n_sub, tiles, tx, width,
+                               height)
+    torch.cuda.synchronize()
+    want = comp._composite_plain(payload, first, n_sub, tiles, tx, width,
+                                 height)[0]
+    for ch, tol in ((comp.O_R, 1e-5), (comp.O_G, 1e-5), (comp.O_B, 1e-5),
+                    (comp.O_T, 0.0), (comp.O_DONE, 0.0),
+                    (comp.O_DEPTH, 1e-4), (comp.O_ACC, 1e-4)):
+        assert (got[:, ch] - want[:, ch]).abs().max().item() <= tol, ch
+    return got
+
+
+def _exact_held(args):
+    """Kernel 4 against its plain version per column (the gradient
+    budget); the uncomputed columns and the two unowned sub-blocks at the
+    end 0. Returns the kernel's dpay as rows."""
+    got = comp._composite_bwd_cuda(*args).reshape(-1, comp.NFEAT)
+    torch.cuda.synchronize()
+    want = comp.composite_bwd_reference(*args).reshape(-1, comp.NFEAT)
+    last = comp.F_B if args[9] else comp.F_PSIZE
+    for c in range(last + 1):
+        assert want[:, c].abs().max() > 0, c
+        err = (got[:, c] - want[:, c]).abs().max().item()
+        assert err <= _grad_budget(want[:, c]), (c, err)
+    assert bool((got[:, last + 1:] == 0).all())
+    assert bool((got[-64:] == 0).all())
+    return got
+
+
+@pytest.mark.parametrize("image_only", [False, True])
+def test_composite_edges_and_empty_tiles(dev, image_only):
+    """_edge_subs through kernels 3 and 4: partial edge tiles, empty
+    tiles, and a tile that saturates in its first sub-block, whose later
+    sub-blocks neither kernel may reach; two launches are bit-identical."""
+    args = _handmade_args(dev, 40, 24, _edge_subs(), image_only, seed=2)
+    res = _fwd_held(args)
+    assert bool((res[2, comp.O_DONE] == 1).all())
+    got = _exact_held(args)
+    first = int(args[1][2])
+    assert bool((got[(first + 1) * 32:(first + 4) * 32] == 0).all())
+    assert bool((got[first * 32:(first + 1) * 32] != 0).any())
+    assert torch.equal(_fwd_held(args), res)
+    again = comp._composite_bwd_cuda(*args).reshape(-1, comp.NFEAT)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+def test_composite_pixels_saturate_at_different_subs(dev):
+    """_staggered_subs through kernels 3 and 4: each pixel saturates in
+    its own sub-block, so kernel 3's warps stop at different sub-blocks;
+    kernel 4 stops where the forward stopped: sub-block 255 has
+    gradients, 256 and 257 none. Two launches are bit-identical."""
+    args = _handmade_args(dev, 16, 16, _staggered_subs(), True, seed=5)
+    res = _fwd_held(args)
+    assert bool((res[0, comp.O_DONE] == 1).all())
+    got = _exact_held(args)
+    assert bool((got[255 * 32:256 * 32] != 0).any())
+    assert bool((got[256 * 32:258 * 32] == 0).all())
+    assert torch.equal(_fwd_held(args), res)
+    again = comp._composite_bwd_cuda(*args).reshape(-1, comp.NFEAT)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+@pytest.mark.parametrize("entry,arg,ctas", [
+    ("msgs_composite_fwd_info", 0, 8),    # 2-warp CTAs, 16 warps per SM
+    ("msgs_composite_bwd_info", 1, 3),    # image_only
+    ("msgs_composite_bwd_info", 0, 3)])
+def test_composite_builds_fit(dev, entry, arg, ctas):
+    """The redesign's point: no stack frame, and the CTAs per SM the
+    designs state (the first port built kernel 3 to ~186 registers and
+    kernel 4 to 255, one CTA per SM)."""
+    info = _build.kernel_info(entry, arg)
+    assert info["stack_bytes"] == 0, info
+    assert info["ctas_per_sm"] >= ctas, info
