@@ -6,9 +6,10 @@ Builds the CUDA kernels from msgs_torch/csrc (into build/msgs_torch/), then:
 
   1. device: the card, and its name and power limit from nvidia-smi;
   2. build: the kernel build time and ptxas's register / shared-memory use;
-     for the scan (kernels 1, 2) and the compositor (3, 4, 4b), the
-     runtime's registers, stack, static and dynamic shared memory and CTAs
-     per SM (cudaFuncGetAttributes,
+     for the scan (kernels 1, 2), the compositor (3, 4, 4b) and every
+     ablation kernel instance (7a-9), the runtime's registers, stack,
+     static and dynamic shared memory and CTAs per SM
+     (cudaFuncGetAttributes,
      cudaOccupancyMaxActiveBlocksPerMultiprocessor);
   3. kernels vs plain: each kernel against its plain PyTorch version on the
      card at the main path's shapes (scans exact, also at lengths around a
@@ -103,7 +104,13 @@ Builds the CUDA kernels from msgs_torch/csrc (into build/msgs_torch/), then:
      every variant against its plain version, written slots equal and
      values within the budgets, on the clustered check stream
      (exp_fwd_ablate.clustered_stream: skips and boundary crossings), the
-     256×200 scene and the first 512 blocks of the script's stream.
+     staggered one (exp_fwd_ablate.staggered_stream: strips that finish
+     at different subs on both sides of a block boundary, a tile that
+     saturates before its run's last block), the 256×200 scene and the
+     first 512 blocks of the script's stream. Each run prints its
+     CUDA-event time, the device time of each kernel it launched (the
+     running sum apart), and its bound (msgs_torch/tools/work.py) with its
+     share of the event time.
  12. bwd2: the ported follow-up experiments (msgs_torch.tools.exp_bwd2
      and exp_bwd3) run in-process at the same stream, nothing cut;
      counters are zeroed just before each script and read just after, and
@@ -117,7 +124,8 @@ Builds the CUDA kernels from msgs_torch/csrc (into build/msgs_torch/), then:
      columns bit for bit (predicted; failing that, within the gradient
      budget, and the miss is printed), the dot_f32 forms' within 3e-5·max
      |column| + 1e-6. Then every run against its plain version, bit for
-     bit, on the three check streams of [ablate].
+     bit, on the four check streams of [ablate]. Each run prints as in
+     [ablate].
 
 Any failed check raises, and the script exits non-zero without its result
 lines. On success the second-to-last lines are the nvidia-smi line and one
@@ -140,52 +148,22 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+# The H100's peaks and the compositor family's fp32 operations per (entry,
+# pixel) pair, one table for this script and the ablation tools.
+from msgs_torch.tools.work import (MMA_FLOPS_PER_PAIR,  # noqa: E402
+                                   OPS_PER_PAIR, OPS_PER_PAIR_BWD,
+                                   OPS_PER_PAIR_BWD_BF16, PEAK_BF16,
+                                   PEAK_BYTES, PEAK_FP32, saturation_work)
+
 W, H = 1920, 1080
 N = 100_000
 ENTRY_CAP = 1_417_216
 REF_ENTRIES = 1_287_253       # BENCH_r05.json detail.n_entries (TPU run)
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and fp32 (non-
-# tensor-core) operations/s.
-PEAK_BYTES = 3.35e12
-PEAK_FP32 = 67e12
 # Idle host time at both ends of trace_window's padded traces.
 TRACE_PAD_S = 0.02
 # chip_smoke.py's own argument for fresh_device_ms's child process.
 FRESH_FLAG = "--trainer-device-ms"
-# fp32 operations per (entry, pixel) pair that the compositor needs for
-# its outputs' bits: each add, multiply, min, compare, and the and of two
-# compares; a select of one of two values is not counted, nor are terms
-# made once per entry or once per pixel and sub-block (under 1/8 of an
-# operation a pair). What a backward recomputes, as composite_fwd.cu does
-# it: 2 pixel offsets, 9 for the power, 4 for expf, 1 for o·g, 5 for the
-# mask's two compares and their and, the clamp and 1−α, ~4 for the prefix
-# product (129 products per 32 entries), 3 for t_after and alive (a
-# product, a compare, an and), 2 for w (α·T·cum_excl, which alive
-# selects), 1 for the T minimum.
-RECOMPUTE_PER_PAIR = 2 + 9 + 4 + 1 + 5 + 4 + 3 + 2 + 1         # 31
-# The forward adds 10 for the five colour multiply-adds.
-OPS_PER_PAIR = RECOMPUTE_PER_PAIR + 10                        # 41
-# composite_bwd.cu adds, with NF colour columns (5, or 3 under
-# image_only): 2·NF−1 for φ, 3 for T_i, T_i·φ and w·φ, ~4 for the w·φ
-# prefix (129 adds per 32 entries), 7 for dα and dpower (S's add and
-# subtract, the divide, T_i·φ − S/(1−α), the and of alive and the mask, the
-# compare α_raw < 0.99, dα·α; the 0/1 factors are selects), 5 for the
-# moment terms (dp·x and dp·y, then dp·x·x, dp·x·y and dp·y·y), NF for
-# w·g_c, and one add per pair for each of the 6 + NF per-entry sums. (The
-# ablation kernels keep the first port's per-pair offsets and 0/1
-# multiplies, and msgs_torch/tools/exp_fwd_ablate.py counts them so.)
-OPS_PER_PAIR_BWD = {nf: RECOMPUTE_PER_PAIR + (2 * nf - 1) + 3 + 4 + 7 + 5
-                    + nf + 6 + nf for nf in (3, 5)}           # 67, 75
 STEPS = 20                    # full-width train steps
-PEAK_BF16 = 989e12            # dense bf16 tensor-core FLOP/s
-# composite_bwd_bf16.cu adds to the recompute, on the fp32 units, 2·NF−1
-# for φ and NF bf16 roundings of its operands, 3 for T_i, T_i·φ and w·φ, 1
-# rounding of w·φ, ~4 for its prefix, 7 for dα and dpower (as the exact
-# backward's), 4 for dx and dy, 2 for dp·dx and dp·dy, 4 roundings when
-# staging; on the tensor cores 4 matrices × 8 columns × 2 flops.
-OPS_PER_PAIR_BWD_BF16 = {nf: RECOMPUTE_PER_PAIR + (2 * nf - 1) + nf + 3 + 1
-                         + 4 + 7 + 4 + 2 + 4 for nf in (3, 5)}  # 64, 70
-MMA_FLOPS_PER_PAIR = 4 * 8 * 2
 # The bf16 kernel vs its plain version, per column, relative to the
 # column's largest value: the two differ in the order of f32 sums and in
 # the bf16 rounding flips that causes. The JAX suite's own criterion is
@@ -277,7 +255,7 @@ def phase_build():
                   f"{line.split(':', 1)[1].strip()}; {stack}")
             name = None
     # The redesigned kernels' builds as the runtime reports them.
-    for label, entry, arg in KERNEL_INFO:
+    for label, entry, arg in KERNEL_INFO + ablate_kernel_info():
         i = _build.kernel_info(entry, arg)
         print(f"[build] {label}: {i['registers']} registers, "
               f"{i['stack_bytes']} bytes of stack, {i['static_smem']} bytes "
@@ -297,6 +275,42 @@ KERNEL_INFO = (("scan_lookback<float> (kernel 1)", "msgs_scan_info", 0),
                 "msgs_composite_bwd_bf16_info", 1),
                ("composite_bwd_bf16 all columns (kernel 4b)",
                 "msgs_composite_bwd_bf16_info", 0))
+
+
+def ablate_kernel_info() -> tuple:
+    """KERNEL_INFO's entries for the ablation kernels (7a-9): the forward
+    variants' tile or block kernel and the running sum (fwd_ablate.cu),
+    every built backward instance (bwd_ablate.cu)."""
+    from msgs_torch.kernels import ablate
+    kind = {v: "fwd_tile" if v in ablate.TILE_VARIANTS else "fwd_block"
+            for v in ablate.ALL_FWD}
+    fwd = tuple((f"fwd_ablate {v} ({kind[v]}_kernel)", "msgs_fwd_ablate_info",
+                 i) for i, v in enumerate(ablate.ALL_FWD))
+    fwd += (("fwd_ablate running_sum_kernel", "msgs_fwd_ablate_info",
+             len(ablate.ALL_FWD)),)
+    return fwd + tuple(
+        (f"bwd_ablate {v} ({f.moments}, {f.constants}, {f.store}, "
+         f"{f.zeroing})", "msgs_bwd_ablate_info", i)
+        for i, (v, f) in enumerate(ablate.BWD_INSTANCES))
+
+
+def device_text(split) -> str:
+    """A tool record's kernel_ms: device ms per call of each kernel (the
+    running sum apart from the block terms), with the events kept."""
+    if not split:
+        return "device not measured"
+    return "device " + ", ".join(f"{k} {v['ms']:.4f} ms ({v['events']} ev)"
+                                 for k, v in split.items())
+
+
+def run_text(r) -> str:
+    """One ablation or follow-up run: its event time, its device time per
+    kernel, and its bound with the share of the event time it is."""
+    return (f"{r['name']} {r['ms']:.4f} ms, {device_text(r['kernel_ms'])}, "
+            f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}; {r['pairs']} pairs, {r['bytes']} bytes; "
+            f"{r['bound_ms'] / r['ms']:.1%} of the event time), max|Δ| "
+            f"{r['max_abs_err']:.3e}{' exact' if r['exact'] else ''}")
 
 
 def paired_ms(fa, fb, reps: int = 50) -> tuple:
@@ -545,36 +559,6 @@ def composite_check(label, dev, stream, width, height, timed: bool):
 def grad_budget(want) -> float:
     """The JAX suite's gradient budget, 3e-5·max|g| + 1e-6."""
     return 3e-5 * max(float(want.abs().max()), 1e-8) + 1e-6
-
-
-def saturation_work(stream, width, height) -> tuple:
-    """(sub-blocks before each tile saturates, warp-sub-blocks before each
-    32-pixel strip of a tile is done) on this stream, from one pass of the
-    plain forward's T and done. Every 32-entry sub-block a tile reaches
-    before all 256 of its pixels are done is read; the (entry, pixel)
-    pairs the compositor needs are the strip count × 32 × 32, as a done
-    pixel adds nothing (kernel 3's warps walk exactly those, and kernels 4
-    and 4b skip a done strip's pairs)."""
-    from msgs_torch.kernels import composite as comp
-    payload, first, n_sub, tiles, tx = stream
-    dev = payload.device
-    feats = payload.reshape(-1, comp.SUB, comp.NFEAT)
-    state = comp._init_state(tiles, tx, width, height, dev)
-    t_run = state[:, comp.O_T].clone()
-    done_run = state[:, comp.O_DONE].clone()
-    ox, oy = comp._tile_origin(tiles, tx, dev)
-    n_tile = torch.zeros((), dtype=torch.long, device=dev)
-    n_strip = torch.zeros((), dtype=torch.long, device=dev)
-    for d, tid in enumerate(comp._active_tiles(n_sub, tiles)):
-        open_ = done_run[tid].reshape(len(tid), -1, 32).amin(-1) == 0
-        n_tile = n_tile + open_.any(-1).sum()
-        n_strip = n_strip + open_.sum()
-        t_in = t_run[tid][:, None, :]
-        done = done_run[tid][:, None, :]
-        sub = comp._sub_forward(feats[first[tid].long() + d], ox[tid],
-                                oy[tid], t_in, done)
-        t_run[tid], done_run[tid] = comp._advance(sub, t_in, done)
-    return int(n_tile), int(n_strip)
 
 
 def bwd_work(stream, width, height):
@@ -1725,12 +1709,9 @@ def phase_ablate(dev, small, smi_line):
         check(counts[name] == sum(r["launches"] for r in runs
                                   if r["name"][:3] == name[:3]),
               f"ablate: {name} launches outside the runs")
-    print(f"[ablate] {tool.W}x{tool.H}, entry_cap {tool.ENTRY_CAP}: " + "; ".join(
-        f"{r['name']} {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-        f"{r['bound_ms']:.4f} ms ({r['bound_by']}; {r['pairs']} pairs, "
-        f"{r['bytes']} bytes), max|Δ| {r['max_abs_err']:.3e}"
-        f"{' exact' if r['exact'] else ''}" for r in runs)
-        + f"; {smi_line}", flush=True)
+    for r in runs:
+        print(f"[ablate] {tool.W}x{tool.H}, entry_cap {tool.ENTRY_CAP}: "
+              f"{run_text(r)}; {smi_line}", flush=True)
 
     # Kernels 3 and 4 on the whole stream, against fwd/full and bwd/full.
     payload, st, sv, tls = tool.make_stream(dev)
@@ -1763,6 +1744,8 @@ def phase_ablate(dev, small, smi_line):
     held = {
         "clustered 1920x1080, 16 blocks": ablate_held(
             "clustered", tool.clustered_stream(dev, 16), tool.W, tool.H),
+        "staggered 1920x1080, 8 blocks": ablate_held(
+            "staggered", tool.staggered_stream(dev), tool.W, tool.H),
         "256x200 scene": ablate_held(
             "256x200", tool.scene_stream(dev, small, 256, 200, 1 << 17),
             256, 200),
@@ -1859,12 +1842,9 @@ def phase_bwd2(dev, small, smi_line):
         check(counts[script]["bwd_ablate"] == sum(
             r["launches"] for r in runs[script] if r["name"] != "fwd/horner"),
             f"bwd2: bwd_ablate launches outside {script}'s runs")
-    print(f"[bwd2] {tool.W}x{tool.H}, entry_cap {tool.ENTRY_CAP}: " + "; ".join(
-        f"{r['name']} {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-        f"{r['bound_ms']:.4f} ms ({r['bound_by']}; {r['pairs']} pairs, "
-        f"{r['bytes']} bytes), device {r['kernel_ms']}"
-        for r in runs["exp_bwd2"] + runs["exp_bwd3"]) + f"; {smi_line}",
-        flush=True)
+    for r in runs["exp_bwd2"] + runs["exp_bwd3"]:
+        print(f"[bwd2] {tool.W}x{tool.H}, entry_cap {tool.ENTRY_CAP}: "
+              f"{run_text(r)}; {smi_line}", flush=True)
 
     # Every backward form against kernel 4 (image-only) on the whole stream.
     payload, st, sv, tls = tool.make_stream(dev)
@@ -1909,6 +1889,8 @@ def phase_bwd2(dev, small, smi_line):
     held = {
         "clustered 1920x1080, 16 blocks": bwd2_held(
             "clustered", tool.clustered_stream(dev, 16), tool.W, tool.H),
+        "staggered 1920x1080, 8 blocks": bwd2_held(
+            "staggered", tool.staggered_stream(dev), tool.W, tool.H),
         "256x200 scene": bwd2_held(
             "256x200", tool.scene_stream(dev, small, 256, 200, 1 << 17),
             256, 200),

@@ -12,403 +12,580 @@
 // 1] as a bf16 dot with f32 accumulation (:242-254, :346), where
 // _bwd_kernel takes exact f32 lane reductions.
 //
-// Design: composite_bwd.cu's, with image-only colour terms (r g b). One CTA
-// per tile, one thread per pixel, walks the tile's subs in order (found by
-// binary search over sub_tile within the computed blocks); per sub it
-// recomputes α, the prefix product, w, T and done as composite_bwd.cu does
-// (the build uses -fmad=false), then dα and dpower, and sums the variant's
-// per-entry quantities over the tile's pixels with the fixed-order warp
-// butterfly of composite_common.cuh; warp 0 applies the chain rules and
-// writes columns 0-8 of each entry's dpay row (the caller's zeros stay in
-// the columns a variant does not compute and in 9-11). The bf16
-// moments round dpower to bf16 on the CUDA cores (__float2bfloat16_rn) and
-// multiply by the basis, which is exact in bf16: every product is exact in
-// f32, so only the order of the f32 sums could differ from the TPU's.
-// The block rules are the TPU kernel's: full and no_prefix advance the
-// state and skip (zero rows) a block all of whose subs continue the tile
-// when it is saturated; the other variants never write the state, so a
-// sub of a block after its run's first block starts from T = done =
-// prefix = 0. Runs chain from sub to sub inside a block in every variant.
-// Each row is written by one thread; no atomics, so two launches are
-// bit-identical. Rows of blocks that do not compute are not written: the
-// caller zeroes dpay.
-//
-// Bound on the H100: fp32 operations, kernel 4's per (entry, pixel) pair
-// (the forward's recompute, φ, the wφ prefix, dα and dpower, the moment
-// terms and their butterfly) plus a bf16 rounding per pair for the
-// moments, over every computed sub of a live block; dpay, the payload and
-// the tiles' constant rows are read or written once.
-//
 // Also replaces tools/exp_bwd2.py:177 `bwd_kernel_var` (built by
 // `make_bwd` :297, called at :323; 4 runs) and tools/exp_bwd3.py:101
 // `bwd_kernel` (built by `make` :241, called at :259; 5 runs): `full` with
 // other moments and other ways to fetch constants and store rows
 // (kernels/ablate.py BwdForm), as template parameters of the same kernel:
-//   M       moments: kBf16 (bwd/full's); kDotF32, Σ dpower·m for
-//           the exact monomials m (the script's `_dot` under HIGHEST, one
-//           rounding per product); kVpu, dp_x = dpower·x first, as
-//           exp_bwd2.py:244-251 and composite_bwd.cu form them;
-//   kDense  constants: per tile (the TPU fetches them per sub at sub_tile;
-//           a CTA per tile reads them once) or the caller's dense
-//           (4·B, 8, 256) gather, read per sub by sub index;
-//   S       store: kCols (the nine computed columns, one store each; the
-//           variants above and exp_bwd3's colstore) or kRow (the 48-byte
-//           row as three float4 stores; catstore);
-//   kZero   zeroing: the caller zeroes dpay and live rows are written, or
-//           the kernel writes every row of the covered blocks once (nozero:
-//           columns 9-11 as zeros, extra CTAs after the tiles' zero the
-//           rows of blocks that do not compute).
+//   M       moments: kBf16 (bwd/full's: dpower rounded to bf16, then
+//           (dp·x)·x, (dp·x)·y, (dp·y)·y, dp·x, dp·y, dp; every product is
+//           exact in f32); kDotF32, dpower·m for the exact monomials m (the
+//           script's `_dot` under HIGHEST, one rounding per product); kVpu,
+//           dp_x = dpower·x first, as exp_bwd2.py:244-251 and
+//           composite_bwd.cu form them;
+//   kDense  constants: per tile (the TPU fetches them per sub at sub_tile)
+//           or the caller's dense (4·B, 8, 256) gather, read per sub;
+//   S       store: kCols (one store per column) or kRow (the 48-byte row
+//           as three float4 stores; catstore);
+//   kZero   zeroing: the caller zeroes dpay and the kernel writes columns
+//           0-8 of the rows it computes, or the kernel writes every row of
+//           the covered blocks once (nozero, all: columns 9-11 and the rows
+//           it does not compute as zeros; extra CTAs after the tiles' zero
+//           the rows of blocks that do not compute).
 // The TPU's GROUP has no counterpart here (a CTA per tile has no grid
 // step): the wrapper passes the blocks its grid covers, (B // group)·group,
 // as n_blocks. nogrows (the TPU's implicit broadcast of the per-sub
-// constants instead of materialised (BLOCK, NPIX) rows) has none either: a
-// thread per pixel holds its constants in registers in every form, so
-// nogrows runs colstore's code. The bound is bwd/full's with the moment
-// terms of the form: 5 multiplies per pair for kVpu (dp_x, dp_y, then
-// ·x, ·y, ·y) and for kDotF32, without bwd/full's bf16 rounding
-// (tools/exp_fwd_ablate.py bwd_ops counts every form).
+// constants) has none either: the constants are held per pixel in shared
+// memory in every form, so nogrows runs colstore's code.
+//
+// Design: composite_bwd.cu's (kernel 4), with the variant's quantities.
+//   - One CTA of 8 warps per tile; warp w owns the tile's pixels
+//     32w..32w+31, and within a sub lane i owns entry i, whose payload row
+//     it holds in registers. Warp 0 finds the tile's run of subs among the
+//     computed blocks by warp-wide searches over sub_valid and sub_tile.
+//   - The warp visits its pixels two at a time, j and j + 16, in 4-bit
+//     bit-reversed j. At each pixel the lanes compute α_i, then the
+//     Hillis-Steele prefix product of (1 − α) and prefix sum of w·φ run
+//     across lanes with __shfl_up_sync (lane i ≥ K takes c_i·c_{i−K}: the
+//     operands of the plain version's Hillis-Steele rounds for entry i), so T,
+//     alive, done and every dpower are the bits the thread-per-pixel form
+//     computes (the build uses -fmad=false).
+//   - Each quantity's per-entry sum over the warp's 32 pixels is the tree
+//     of kernels/ablate.py pixel_tree_sum: pixels p and p + 16 first, then
+//     + 8, + 4, + 2, + 1. The pair (j, j + 16) is its first level, and the
+//     bit-reversed order makes every further level join two neighbours, as
+//     a binary counter carries: two leaves are joined in registers, at most
+//     3 pending partials per quantity wait in shared memory.
+//   - A pixel's T and running prefix P live in shared memory beside its
+//     constants (sfx = total_phi + T_final·g_T, g_r, g_g, g_b); its done
+//     flag is a bit of a warp-uniform mask, updated through a ballot. alive,
+//     the mask and [α_raw < 0.99] are selects, not 0/1 factors: the same
+//     bits, or +0 where a multiply gave ±0. A pair of done pixels, and a
+//     pair no entry touches, adds an exact 0 to its leaf.
+//   - The 8 warps' sums meet in shared memory (double-buffered, one barrier
+//     per sub) and are added in warp order; the chain rules are spread over
+//     the warps, one output column (or the colour columns) each, lane =
+//     entry, in the first port's operand order.
+// The block rules. A sub after the tile is saturated (all 256 pixels done)
+// adds ±0 to every sum, so the CTA stops there, as kernel 4 does (the TPU
+// skips such a block, or computes ±0 rows in a block it does not skip).
+// full and no_prefix advance the state from block to block; the other
+// variants never write it, so a sub of a block after its run's first block
+// starts from T = done = P = 0, where every term is ±0: their CTA walks
+// only the run's first block (runs still chain from sub to sub inside it).
+// The rows a CTA does not walk are the caller's zeros, or under kZero
+// written as zeros once. Each row is written by one thread and no atomics
+// are used, so two launches are bit-identical. The results equal the plain
+// version's up to the sign of a zero.
+//
+// Bound on the H100: fp32 operations per (entry, pixel) pair before each
+// 32-pixel strip is done (msgs_torch/tools/work.py counts each variant and
+// form from this source); the payload, dpay and the constant rows are read
+// or written once. __launch_bounds__ asks for 3 CTAs per SM (at most 80
+// registers); shared memory is static (≤ 43 KB a CTA).
 #include <cuda_bf16.h>
 
-#include "composite_common.cuh"
+#include "ablate_common.cuh"
+#include "kernel_info.cuh"
 
 namespace {
 
 using namespace msgs_composite;
+using namespace msgs_ablate;
 
-constexpr int kWarps = kPix / 32;
-constexpr int kMom = 6;      // pixel-monomial moments
-constexpr int kPhi = 3;      // image-only colour terms r g b
+constexpr int kWarps = kPix / 32;   // 8
+constexpr int kMom = 6;             // pixel-monomial moments
+constexpr int kPhi = 3;             // image-only colour terms r g b
+constexpr int kStep = 2;            // pixels a warp takes at once
+constexpr int kPairs = 32 / kStep;  // leaves of a warp's tree
+constexpr int kPend = 2;            // pending levels in shared memory
 
-// kernels/ablate.py BWD_VARIANTS, in order.
+// kernels/ablate.py BWD_VARIANTS.
 enum Variant { kFull = 0, kGeomNostore, kGeomConcat, kNoGeom, kNoPrefix,
                kRecomputeOnly };
-// kernels/ablate.py MOMENTS, in order.
+// kernels/ablate.py MOMENTS.
 enum Moments { kBf16 = 0, kDotF32, kVpu };
 enum Store { kCols = 0, kRow };
 constexpr int kZeroCtas = 264;   // CTAs that zero the uncomputed blocks
 
-// Rows of blocks [nb, n_blocks) as zeros, the blocks strided over the
-// zeroing CTAs (z of nz).
-__device__ void zero_blocks(const int* sub_valid, float* dpay, int n_blocks,
-                            int z, int nz) {
-  __shared__ int nb;
-  if (threadIdx.x == 0) nb = computed_blocks(sub_valid, n_blocks);
-  __syncthreads();
-  constexpr int kVec = kNSub * kSub * kFeat / 4;   // float4s per block
-  for (int b = nb + z; b < n_blocks; b += nz) {
-    float4* d = reinterpret_cast<float4*>(dpay + (long long)b * (kVec * 4));
-    for (int i = threadIdx.x; i < kVec; i += kPix)
-      d[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+// Per-entry sums: Σ w; or Σ dpower and the 3 colour sums; or the 6
+// moments and the 3 colour sums.
+template <int V>
+__host__ __device__ constexpr int n_quantities() {
+  return V == kRecomputeOnly ? 1 : V == kNoGeom ? 1 + kPhi : kMom + kPhi;
+}
+
+// One Hillis-Steele round of stride K across the warp's lanes.
+template <int K>
+__device__ __forceinline__ float lane_mul_round(float c, int lane) {
+  const float o = __shfl_up_sync(kAll, c, K);
+  return lane >= K ? c * o : c;
+}
+
+template <int K>
+__device__ __forceinline__ float lane_add_round(float c, int lane) {
+  const float o = __shfl_up_sync(kAll, c, K);
+  return lane >= K ? c + o : c;
+}
+
+// The per-pixel terms of the variant's quantities for entry `lane` at one
+// pixel: the moment form M of dpower, then w·g_c.
+template <int V, int M>
+__device__ __forceinline__ void pixel_terms(float w, float dp, const float* g,
+                                            float pxl, float pyl,
+                                            float* term) {
+  if (V == kRecomputeOnly) {
+    term[0] = w;
+    return;
+  }
+  if (V == kNoGeom) {
+    term[0] = dp;
+#pragma unroll
+    for (int ch = 0; ch < kPhi; ++ch) term[1 + ch] = w * g[ch];
+    return;
+  }
+  if (M == kDotF32) {
+    term[0] = dp * (pxl * pxl);   // x²
+    term[1] = dp * (pxl * pyl);   // xy
+    term[2] = dp * (pyl * pyl);   // y²
+    term[3] = dp * pxl;           // x
+    term[4] = dp * pyl;           // y
+    term[5] = dp;                 // 1
+  } else {
+    // kBf16 rounds dpower to bf16 first; kVpu takes it as it is. Both form
+    // (dp·x)·x, (dp·x)·y and (dp·y)·y.
+    const float d =
+        M == kBf16 ? __bfloat162float(__float2bfloat16_rn(dp)) : dp;
+    term[0] = d * pxl * pxl;
+    term[1] = d * pxl * pyl;
+    term[2] = d * pyl * pyl;
+    term[3] = d * pxl;
+    term[4] = d * pyl;
+    term[5] = d;
+  }
+#pragma unroll
+  for (int ch = 0; ch < kPhi; ++ch) term[kMom + ch] = w * g[ch];
+}
+
+// The warp's pixels j and j + 16, for entry `lane` of the sub: the
+// forward's recompute, dα and dpower, and x[q] = term_q(j) + term_q(j+16)
+// for each quantity (the tree's leaf); each pixel's T and P in shared
+// memory and its bit of done_mask updated. A pixel that is already done
+// takes part with not_done = 0, as in the forward. Returns false, with x
+// untouched, when no entry touches a pixel of the pair that is not done.
+template <int V, int M>
+__device__ __forceinline__ bool pair_step(
+    const float (&ent)[kFeat], float ox, float oy, int lane, int warp,
+    int j, const float4* pconst, float2* tp, unsigned& done_mask,
+    float (&x)[n_quantities<V>()]) {
+  constexpr int kQ = n_quantities<V>();
+  constexpr bool kDpower = V != kRecomputeOnly;
+  constexpr bool kPrefix = kDpower && V != kNoPrefix;
+  const float kTEps = t_eps();
+  int jj[kStep], pj[kStep];
+  float pxl[kStep], pyl[kStep], nd[kStep], araw[kStep], al[kStep];
+  bool touched = false;
+#pragma unroll
+  for (int u = 0; u < kStep; ++u) {
+    jj[u] = j + (32 / kStep) * u;
+    pj[u] = (warp << 5) + jj[u];
+    pxl[u] = (float)(pj[u] % kTile);
+    pyl[u] = (float)(pj[u] / kTile);
+    nd[u] = (done_mask >> jj[u]) & 1u ? 0.0f : 1.0f;
+    al[u] = splat_alpha(ent, ox, oy, pxl[u], pyl[u], araw[u]);
+    touched = touched || (al[u] > 0.0f && nd[u] > 0.0f);
+  }
+  if (__ballot_sync(kAll, touched) == 0u) return false;
+
+  float cu[kStep];
+#pragma unroll
+  for (int u = 0; u < kStep; ++u) cu[u] = 1.0f - al[u];
+#pragma unroll
+  for (int u = 0; u < kStep; ++u) cu[u] = lane_mul_round<1>(cu[u], lane);
+#pragma unroll
+  for (int u = 0; u < kStep; ++u) cu[u] = lane_mul_round<2>(cu[u], lane);
+#pragma unroll
+  for (int u = 0; u < kStep; ++u) cu[u] = lane_mul_round<4>(cu[u], lane);
+#pragma unroll
+  for (int u = 0; u < kStep; ++u) cu[u] = lane_mul_round<8>(cu[u], lane);
+#pragma unroll
+  for (int u = 0; u < kStep; ++u) cu[u] = lane_mul_round<16>(cu[u], lane);
+
+  float wp[kStep], w[kStep], tphi[kStep], ta[kStep], t_in[kStep];
+  float p_in[kStep], sfx[kStep], g[kStep][kPhi], t_last[kStep];
+  bool alive[kStep];
+#pragma unroll
+  for (int u = 0; u < kStep; ++u) {
+    const float ce_up = __shfl_up_sync(kAll, cu[u], 1);
+    const float ce = lane == 0 ? 1.0f : ce_up;
+    const float2 st = tp[pj[u]];               // T, P
+    t_in[u] = st.x;
+    p_in[u] = st.y;
+    t_last[u] = t_in[u] * __shfl_sync(kAll, cu[u], 31);
+    ta[u] = t_in[u] * cu[u];
+    alive[u] = ta[u] >= kTEps && nd[u] > 0.0f;
+    // α·T·cum_excl·alive with alive ∈ {0, 1} and every factor ≥ 0: the
+    // product itself or +0, the same bits as the multiply.
+    w[u] = alive[u] ? al[u] * t_in[u] * ce : 0.0f;
+    if (kDpower) {
+      const float4 c = pconst[pj[u]];          // sfx, g_r, g_g, g_b
+      sfx[u] = c.x;
+      g[u][0] = c.y;
+      g[u][1] = c.z;
+      g[u][2] = c.w;
+      float phi = g[u][0] * ent[F_R];
+#pragma unroll
+      for (int ch = 1; ch < kPhi; ++ch) phi = phi + g[u][ch] * ent[F_R + ch];
+      const float t_i = t_in[u] * ce;
+      tphi[u] = t_i * phi;
+      wp[u] = w[u] * phi;
+    }
+  }
+  if (kPrefix) {
+#pragma unroll
+    for (int u = 0; u < kStep; ++u) wp[u] = lane_add_round<1>(wp[u], lane);
+#pragma unroll
+    for (int u = 0; u < kStep; ++u) wp[u] = lane_add_round<2>(wp[u], lane);
+#pragma unroll
+    for (int u = 0; u < kStep; ++u) wp[u] = lane_add_round<4>(wp[u], lane);
+#pragma unroll
+    for (int u = 0; u < kStep; ++u) wp[u] = lane_add_round<8>(wp[u], lane);
+#pragma unroll
+    for (int u = 0; u < kStep; ++u) wp[u] = lane_add_round<16>(wp[u], lane);
+  }
+
+  float term[kStep][kQ];
+#pragma unroll
+  for (int u = 0; u < kStep; ++u) {
+    float dp = 0.0f;
+    if (kDpower) {
+      // (T_i·φ − S/(1−α))·alive·mask·α·unclamped with 0/1 factors as
+      // selects: the same bits, or +0 where the multiplies give ±0.
+      // no_prefix takes the row's own w·φ for the prefix.
+      const float suffix = kPrefix ? sfx[u] - (p_in[u] + wp[u])
+                                   : sfx[u] - wp[u];
+      const float d_alpha = alive[u] && al[u] > 0.0f
+                                ? tphi[u] - suffix / (1.0f - al[u]) : 0.0f;
+      dp = araw[u] < alpha_max() ? d_alpha * al[u] : 0.0f;
+    }
+    pixel_terms<V, M>(w[u], dp, g[u], pxl[u], pyl[u], term[u]);
+
+    // The pixel's new T (the minimum of non-negative floats, as unsigned
+    // bits), P and done, as the forward leaves them.
+    const float tmin = __uint_as_float(__reduce_min_sync(
+        kAll, __float_as_uint(alive[u] ? ta[u] : t_in[u])));
+    float p_out = p_in[u];
+    if (kPrefix) p_out = p_in[u] + __shfl_sync(kAll, wp[u], 31);
+    if (lane == 0) tp[pj[u]] = make_float2(tmin, p_out);
+    // Through a ballot, so the compiler sees the mask as warp-uniform.
+    if (__ballot_sync(kAll, t_last[u] < kTEps)) done_mask |= 1u << jj[u];
+  }
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) x[q] = term[0][q] + term[1][q];
+  return true;
+}
+
+// Rows [k0, k1) of dpay as zeros, by the CTA's threads.
+__device__ __forceinline__ void zero_rows(float* dpay, int k0, int k1) {
+  float4* d = reinterpret_cast<float4*>(dpay + (long long)k0 * (kSub * kFeat));
+  const int n = (k1 - k0) * (kSub * kFeat / 4);
+  for (int i = threadIdx.x; i < n; i += kPix)
+    d[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// Warp `warp`'s share of the chain rules and stores for entry `lane` of
+// the sub whose dpay row is d, from the warps' sums pb[q·256 + 32·w].
+template <int V, int S, bool kZero>
+__device__ __forceinline__ void store_rows(const float* pb,
+                                           const float (&ent)[kFeat],
+                                           float ox, float oy, int warp,
+                                           float* d) {
+  auto sum = [&](int q) {
+    float a = pb[q * kPix];
+#pragma unroll
+    for (int wp = 1; wp < kWarps; ++wp) a = a + pb[q * kPix + wp * 32];
+    return a;
+  };
+  if (V == kRecomputeOnly) {
+    if (warp == 0) d[0] = sum(0);
+    return;
+  }
+  if (V == kNoGeom) {
+    if (warp == 0) d[0] = sum(0);
+    if (warp == 1) {
+#pragma unroll
+      for (int ch = 0; ch < kPhi; ++ch) d[F_R + ch] = sum(1 + ch);
+    }
+    return;
+  }
+  const float mxl = ent[F_MX] - ox;
+  const float myl = ent[F_MY] - oy;
+  auto d_mx = [&](float q10, float q01, float q00) {
+    return ent[F_CXX] * (q10 - mxl * q00) + ent[F_CXY] * (q01 - myl * q00);
+  };
+  auto d_my = [&](float q10, float q01, float q00) {
+    return ent[F_CYY] * (q01 - myl * q00) + ent[F_CXY] * (q10 - mxl * q00);
+  };
+  auto d_cxx = [&](float q20, float q10, float q00) {
+    return -0.5f * (q20 - 2.0f * mxl * q10 + mxl * mxl * q00);
+  };
+  auto d_cxy = [&](float q11, float q10, float q01, float q00) {
+    return -(q11 - myl * q10 - mxl * q01 + mxl * myl * q00);
+  };
+  auto d_cyy = [&](float q02, float q01, float q00) {
+    return -0.5f * (q02 - 2.0f * myl * q01 + myl * myl * q00);
+  };
+  auto d_op = [&](float q00) {
+    const float op = ent[F_OP];
+    return op > 0.0f ? q00 / fmaxf(op, 1e-30f) : 0.0f;
+  };
+  if (V == kGeomNostore) {
+    if (warp == 0) {
+      const float q20 = sum(0), q11 = sum(1), q02 = sum(2);
+      const float q10 = sum(3), q01 = sum(4), q00 = sum(5);
+      d[0] = d_mx(q10, q01, q00) + d_my(q10, q01, q00) +
+             d_cxx(q20, q10, q00) + d_cxy(q11, q10, q01, q00) +
+             d_cyy(q02, q01, q00) + d_op(q00) +
+             (((0.0f + sum(kMom)) + sum(kMom + 1)) + sum(kMom + 2));
+    }
+    return;
+  }
+  if (S == kRow) {
+    float4* d4 = reinterpret_cast<float4*>(d);
+    if (warp == 0) {
+      const float q20 = sum(0), q11 = sum(1);
+      const float q10 = sum(3), q01 = sum(4), q00 = sum(5);
+      d4[0] = make_float4(d_mx(q10, q01, q00), d_my(q10, q01, q00),
+                          d_cxx(q20, q10, q00), d_cxy(q11, q10, q01, q00));
+    } else if (warp == 1) {
+      const float q02 = sum(2), q01 = sum(4), q00 = sum(5);
+      d4[1] = make_float4(d_cyy(q02, q01, q00), d_op(q00), sum(kMom),
+                          sum(kMom + 1));
+    } else if (warp == 2) {
+      d4[2] = make_float4(sum(kMom + 2), 0.0f, 0.0f, 0.0f);
+    }
+    return;
+  }
+  switch (warp) {
+    case 0:
+      d[F_MX] = d_mx(sum(3), sum(4), sum(5));
+      break;
+    case 1:
+      d[F_MY] = d_my(sum(3), sum(4), sum(5));
+      break;
+    case 2:
+      d[F_CXX] = d_cxx(sum(0), sum(3), sum(5));
+      break;
+    case 3:
+      d[F_CXY] = d_cxy(sum(1), sum(3), sum(4), sum(5));
+      break;
+    case 4:
+      d[F_CYY] = d_cyy(sum(2), sum(4), sum(5));
+      break;
+    case 5:
+      d[F_OP] = d_op(sum(5));
+      break;
+    case 6:
+#pragma unroll
+      for (int ch = 0; ch < kPhi; ++ch) d[F_R + ch] = sum(kMom + ch);
+      break;
+    default:
+      // kZero writes every column once, 9-11 as zeros.
+      if (kZero) {
+#pragma unroll
+        for (int col = F_R + kPhi; col < kFeat; ++col) d[col] = 0.0f;
+      }
+      break;
   }
 }
 
-template <int V, int M = kBf16, bool kDense = false, int S = kCols,
-          bool kZero = false>
-__global__ void __launch_bounds__(kPix)
+template <int V, int M, bool kDense, int S, bool kZero>
+__global__ void __launch_bounds__(kPix, 3)
 bwd_ablate_kernel(const float* __restrict__ payload,
                   const int* __restrict__ sub_tile,
                   const int* __restrict__ sub_valid,
                   const float* __restrict__ cst, float* __restrict__ dpay,
                   int n_blocks, int tiles, int tiles_x, int width,
                   int height) {
+  constexpr int kQ = n_quantities<V>();
   constexpr bool kAdvance = V == kFull || V == kNoPrefix;
-  // Per-entry sums: Σ w; or Σ dpower and the 3 colour sums; or the 6
-  // moments and the 3 colour sums.
-  constexpr int kQ =
-      V == kRecomputeOnly ? 1 : V == kNoGeom ? 1 + kPhi : kMom + kPhi;
-  __shared__ float sp[kSub * kFeat];
-  __shared__ float red[kQ][kWarps][kSub];
+  constexpr bool kConst = V != kRecomputeOnly;
+  __shared__ float4 pconst[kPix];          // per pixel: sfx, g_r, g_g, g_b
+  __shared__ float2 tp[kPix];              // per pixel: T, P
+  // pend[l][q][tid]: the tree's pending nodes of levels 2 and 3;
+  // part[b][q][warp·32 + lane]: the warps' sums, and the level-4 node
+  // while the warp walks its pixels.
+  __shared__ float pend[kPend * kQ * kPix];
+  __shared__ float part[2 * kQ * kPix];
   __shared__ int run[2];
-  const float kTEps = t_eps();
 
-  if (kZero && (int)blockIdx.x >= tiles) {
-    zero_blocks(sub_valid, dpay, n_blocks, blockIdx.x - tiles,
-                gridDim.x - tiles);
-    return;
-  }
-  const int tile = blockIdx.x;
   const int p = threadIdx.x;
   const int warp = p >> 5;
   const int lane = p & 31;
-  if (p == 0) {
-    const int nb = computed_blocks(sub_valid, n_blocks);
-    run[0] = lower_bound(sub_tile, nb * kNSub, tile);
-    run[1] = lower_bound(sub_tile, nb * kNSub, tile + 1);
+  if (warp == 0) {
+    // A tile's run, or (a zeroing CTA) the computed blocks.
+    const int2 r =
+        (int)blockIdx.x < tiles
+            ? tile_run(sub_tile, sub_valid, n_blocks, blockIdx.x, lane)
+            : make_int2(computed_blocks(sub_valid, n_blocks, lane), 0);
+    if (lane == 0) {
+      run[0] = r.x;
+      run[1] = r.y;
+    }
   }
   __syncthreads();
+  if (kZero && (int)blockIdx.x >= tiles) {
+    // Rows of blocks [nb, n_blocks) as zeros, the blocks strided over the
+    // zeroing CTAs.
+    for (int b = run[0] + blockIdx.x - tiles; b < n_blocks;
+         b += gridDim.x - tiles)
+      zero_rows(dpay, b * kNSub, (b + 1) * kNSub);
+    return;
+  }
+  const int tile = blockIdx.x;
   const int s0 = run[0], s1 = run[1];
   if (s0 >= s1) return;
-
   const float ox = (float)(tile % tiles_x) * (float)kTile;
   const float oy = (float)(tile / tiles_x) * (float)kTile;
-  const float pxl = (float)(p % kTile);
-  const float pyl = (float)(p / kTile);
-  const float xx = pxl * pxl, xy = pxl * pyl, yy = pyl * pyl;
-  // The tile's constant rows (tools/exp_fwd_ablate.py:257-264): g_r g_g
-  // g_b, and the suffix base total_phi + T_final·g_T; per sub if dense.
-  float g[kPhi];
-  float sfx;
+
+  // Pixel p's constants (tools/exp_fwd_ablate.py:257-264): the suffix base
+  // total_phi + T_final·g_T and g_r g_g g_b, per tile or (dense) per sub.
+  // A warp only ever reads its own pixels' entries, so __syncwarp orders
+  // them. T starts at 1 and P at 0.
   auto constants = [&](long long row) {
     const float* c = cst + row * (kOut * kPix) + p;
-#pragma unroll
-    for (int ch = 0; ch < kPhi; ++ch) g[ch] = c[ch * kPix];
-    sfx = c[5 * kPix] + c[6 * kPix];
+    pconst[p] = make_float4(c[5 * kPix] + c[6 * kPix], c[0], c[kPix],
+                            c[2 * kPix]);
   };
-  if (!kDense) constants(tile);
+  if (kConst && !kDense) constants(tile);
+  tp[p] = make_float2(1.0f, 0.0f);
+  const float pxl_own = (float)(p % kTile);
+  const float pyl_own = (float)(p / kTile);
+  unsigned done_mask = __ballot_sync(
+      kAll, (pxl_own + ox) >= (float)width || (pyl_own + oy) >= (float)height);
+  __syncwarp();
 
-  const float outside =
-      ((pxl + ox) >= (float)width || (pyl + oy) >= (float)height) ? 1.0f
-                                                                   : 0.0f;
-  float T = 1.0f, done = outside;
-  float P = 0.0f;      // Σ w·φ over the run's earlier subs
-  bool sat = false;    // all 256 pixels done (uniform over the CTA)
-  bool skip = false;   // the current block is skipped
-
-  for (int j = s0; j < s1; ++j) {
-    float* d = dpay + (long long)j * (kSub * kFeat);
-    if (j % kNSub == 0 && j > s0) {
-      skip = kAdvance && j + kNSub - 1 < s1 && sat;
-      if (!kAdvance) {   // a carried sub: the never-written state
-        T = 0.0f;
-        done = 0.0f;
-        P = 0.0f;
-      }
-    }
-    if (skip) {
-      for (int i = p; i < kSub * kFeat; i += kPix) d[i] = 0.0f;
-      continue;
-    }
-    const float* src = payload + (long long)j * (kSub * kFeat);
-    for (int i = p; i < kSub * kFeat; i += kPix) sp[i] = src[i];
-    if (kDense) constants(j);
-    __syncthreads();
-
-    // α and the prefix product, exactly as composite_fwd.cu computes them.
-    float al[kSub], cu[kSub];
-    unsigned unclamped = 0u;
+  // Variants that do not advance the state walk the run's first block only.
+  const int s_end = kAdvance ? s1 : min(s1, (s0 / kNSub + 1) * kNSub);
+  int k = s0;
+  while (k < s_end) {
+    // Entry `lane` of sub k, in registers.
+    const float* e = payload + ((long long)k * kSub + lane) * kFeat;
+    float ent[kFeat];
 #pragma unroll
-    for (int i = 0; i < kSub; ++i) {
-      float araw;
-      al[i] = splat_alpha(sp + i * kFeat, ox, oy, pxl, pyl, araw);
-      cu[i] = 1.0f - al[i];
-      if (araw < alpha_max()) unclamped |= 1u << i;
-    }
-    hs_prefix_product(cu);
-
-    // w, T_i·φ and w·φ per entry; the new T and done as the forward.
-    const float t_in = T;
-    const float not_done = 1.0f - done;
-    const float t_last = t_in * cu[kSub - 1];
-    float w[kSub], wphi[kSub];
-    unsigned alive_bits = 0u;
-    float tmin = INFINITY;
-    float ce = 1.0f;
-#pragma unroll
-    for (int i = 0; i < kSub; ++i) {
-      const float* e = sp + i * kFeat;
-      const float ta = t_in * cu[i];
-      const float alive = (ta >= kTEps ? 1.0f : 0.0f) * not_done;
-      w[i] = al[i] * t_in * ce * alive;
-      tmin = fminf(tmin, alive > 0.0f ? ta : t_in);
-      if (alive > 0.0f) alive_bits |= 1u << i;
-      float phi = g[0] * e[F_R];
-#pragma unroll
-      for (int ch = 1; ch < kPhi; ++ch) phi = phi + g[ch] * e[F_R + ch];
-      const float t_i = t_in * ce;
-      ce = cu[i];
-      cu[i] = t_i * phi;        // cu now holds T_i·φ_i
-      wphi[i] = w[i] * phi;
-    }
-    T = tmin;
-    done = fmaxf(done, t_last < kTEps ? 1.0f : 0.0f);
-
-    if (V != kRecomputeOnly) {
-      // The wφ prefix within the run (no_prefix: the row's own w·φ), then
-      // dpower per entry, into wphi.
-      if (V != kNoPrefix) hs_prefix_sum(wphi);
-#pragma unroll
-      for (int i = 0; i < kSub; ++i) {
-        const float suffix = V == kNoPrefix ? sfx - wphi[i]
-                                            : sfx - (P + wphi[i]);
-        const float alive = (alive_bits >> i) & 1u ? 1.0f : 0.0f;
-        const float mask = al[i] > 0.0f ? 1.0f : 0.0f;
-        const float d_alpha =
-            (cu[i] - suffix / (1.0f - al[i])) * alive * mask;
-        const float unc = (unclamped >> i) & 1u ? 1.0f : 0.0f;
-        if (V != kNoPrefix && i == kSub - 1) P = P + wphi[i];
-        wphi[i] = d_alpha * al[i] * unc;
-      }
+    for (int col = 0; col < kFeat; ++col) ent[col] = __ldg(e + col);
+    if (kConst && kDense) {
+      constants(k);
+      __syncwarp();
     }
 
-    // Per-entry sums over the warp's 32 pixels.
-    float v[kSub];
+    float* buf = part + ((k - s0) & 1) * kQ * kPix;
+    float* mine = buf + p;   // level 4, then the warp's sum
+    if (done_mask == kAll) {
+      // Every term of every pixel is ±0.
 #pragma unroll
-    for (int q = 0; q < kQ; ++q) {
+      for (int q = 0; q < kQ; ++q) mine[q * kPix] = 0.0f;
+    } else {
+      for (int r2 = 0; r2 < kPairs / 2; ++r2) {
+        // Leaves 2·r2 and 2·r2 + 1 (pairs j and j + 8), joined here.
+        float x[2][kQ];
 #pragma unroll
-      for (int i = 0; i < kSub; ++i) {
-        if (V == kRecomputeOnly) {
-          v[i] = w[i];
-        } else if (V == kNoGeom) {
-          v[i] = q == 0 ? wphi[i] : w[i] * g[q == 0 ? 0 : q - 1];
-        } else if (q < kMom && M == kDotF32) {
-          const float dp = wphi[i];
-          switch (q) {
-            case 0: v[i] = dp * xx; break;          // x²
-            case 1: v[i] = dp * xy; break;          // xy
-            case 2: v[i] = dp * yy; break;          // y²
-            case 3: v[i] = dp * pxl; break;         // x
-            case 4: v[i] = dp * pyl; break;         // y
-            default: v[i] = dp; break;              // 1
+        for (int h = 0; h < 2; ++h) {
+          const int j = (int)(__brev((unsigned)(2 * r2 + h)) >> 28);
+          const unsigned two = (1u << j) | (1u << (j + 32 / kStep));
+          if ((done_mask & two) == two ||
+              !pair_step<V, M>(ent, ox, oy, lane, warp, j, pconst, tp,
+                               done_mask, x[h])) {
+#pragma unroll
+            for (int q = 0; q < kQ; ++q) x[h][q] = 0.0f;
           }
-        } else if (q < kMom) {
-          // kBf16 rounds dpower to bf16 first; kVpu takes it as it is.
-          // Both form (dp·x)·x, (dp·x)·y and (dp·y)·y.
-          const float dp =
-              M == kBf16 ? __bfloat162float(__float2bfloat16_rn(wphi[i]))
-                         : wphi[i];
-          switch (q) {
-            case 0: v[i] = dp * pxl * pxl; break;   // x²
-            case 1: v[i] = dp * pxl * pyl; break;   // xy
-            case 2: v[i] = dp * pyl * pyl; break;   // y²
-            case 3: v[i] = dp * pxl; break;         // x
-            case 4: v[i] = dp * pyl; break;         // y
-            default: v[i] = dp; break;              // 1
-          }
-        } else {
-          v[i] = w[i] * g[q - kMom];
         }
-      }
-      red[q][warp][lane] = warp_transpose_sum(v);
-    }
-    __syncthreads();
-
-    if (warp == 0) {
-      float s[kQ];
 #pragma unroll
-      for (int q = 0; q < kQ; ++q) {
-        float a = red[q][0][lane];
+        for (int q = 0; q < kQ; ++q) x[0][q] = x[0][q] + x[1][q];
+        // Join the node to its pending left neighbours, as a binary
+        // counter carries: r2's trailing ones are the levels it completes.
+        int l = 0;
+        for (; (r2 >> l) & 1; ++l) {
+          const float* s = l < kPend ? pend + l * kQ * kPix + p : mine;
 #pragma unroll
-        for (int wp = 1; wp < kWarps; ++wp) a = a + red[q][wp][lane];
-        s[q] = a;
-      }
-      float row[kFeat];
-#pragma unroll
-      for (int col = 0; col < kFeat; ++col) row[col] = 0.0f;
-      if (V == kRecomputeOnly) {
-        row[0] = s[0];
-      } else if (V == kNoGeom) {
-        row[0] = s[0];
-#pragma unroll
-        for (int ch = 0; ch < kPhi; ++ch) row[F_R + ch] = s[1 + ch];
-      } else {
-        const float q20 = s[0], q11 = s[1], q02 = s[2];
-        const float q10 = s[3], q01 = s[4], q00 = s[5];
-        const float* e = sp + lane * kFeat;
-        const float mxl = e[F_MX] - ox;
-        const float myl = e[F_MY] - oy;
-        const float cxx = e[F_CXX], cxy = e[F_CXY], cyy = e[F_CYY];
-        const float op = e[F_OP];
-        const float d_cxx = -0.5f * (q20 - 2.0f * mxl * q10 + mxl * mxl * q00);
-        const float d_cyy = -0.5f * (q02 - 2.0f * myl * q01 + myl * myl * q00);
-        const float d_cxy = -(q11 - myl * q10 - mxl * q01 + mxl * myl * q00);
-        const float d_mx = cxx * (q10 - mxl * q00) + cxy * (q01 - myl * q00);
-        const float d_my = cyy * (q01 - myl * q00) + cxy * (q10 - mxl * q00);
-        const float d_op = op > 0.0f ? q00 / fmaxf(op, 1e-30f) : 0.0f;
-        if (V == kGeomNostore) {
-          row[0] = d_mx + d_my + d_cxx + d_cxy + d_cyy + d_op +
-                   (((0.0f + s[kMom]) + s[kMom + 1]) + s[kMom + 2]);
-        } else {
-          row[F_MX] = d_mx;
-          row[F_MY] = d_my;
-          row[F_CXX] = d_cxx;
-          row[F_CXY] = d_cxy;
-          row[F_CYY] = d_cyy;
-          row[F_OP] = d_op;
-#pragma unroll
-          for (int ch = 0; ch < kPhi; ++ch) row[F_R + ch] = s[kMom + ch];
+          for (int q = 0; q < kQ; ++q) x[0][q] = s[q * kPix] + x[0][q];
         }
-      }
-      float* dr = d + lane * kFeat;
-      if (S == kCols) {
-        // kZero writes every column once, 9-11 as zeros.
-        constexpr int kCol = kZero ? kFeat : F_R + kPhi;
+        float* s = l < kPend ? pend + l * kQ * kPix + p : mine;
 #pragma unroll
-        for (int col = 0; col < kCol; ++col) dr[col] = row[col];
-      } else {
-        float4* d4 = reinterpret_cast<float4*>(dr);
-        d4[0] = make_float4(row[0], row[1], row[2], row[3]);
-        d4[1] = make_float4(row[4], row[5], row[6], row[7]);
-        d4[2] = make_float4(row[8], row[9], row[10], row[11]);
+        for (int q = 0; q < kQ; ++q) s[q * kPix] = x[0][q];
       }
     }
 
-    // Also the barrier before the next sub overwrites sp and red.
-    sat = __syncthreads_count(done != 0.0f) == kPix;
+    // One barrier: the partials are complete, and the last one tells
+    // whether every pixel of the tile is done.
+    const bool all_done = __syncthreads_and(done_mask == kAll);
+    store_rows<V, S, kZero>(buf + lane, ent, ox, oy, warp,
+                            dpay + ((long long)k * kSub + lane) * kFeat);
+    ++k;
+    if (all_done) break;
   }
+  if (kZero) zero_rows(dpay, k, s1);
 }
 
+// One built instance: its kernel, launch and build info.
 template <int V, int M = kBf16, bool kDense = false, int S = kCols,
           bool kZero = false>
-int launch(const float* pay, const int* st, const int* sv, const float* cst,
-           float* dpay, int n_blocks, int tiles, int tiles_x, int width,
-           int height, cudaStream_t s) {
-  const int grid = tiles + (kZero ? kZeroCtas : 0);
-  bwd_ablate_kernel<V, M, kDense, S, kZero><<<grid, kPix, 0, s>>>(
-      pay, st, sv, cst, dpay, n_blocks, tiles, tiles_x, width, height);
-  return (int)cudaGetLastError();
+struct Inst {
+  static int launch(const float* pay, const int* st, const int* sv,
+                    const float* cst, float* dpay, int n_blocks, int tiles,
+                    int tiles_x, int width, int height, cudaStream_t s) {
+    bwd_ablate_kernel<V, M, kDense, S, kZero>
+        <<<tiles + (kZero ? kZeroCtas : 0), kPix, 0, s>>>(
+            pay, st, sv, cst, dpay, n_blocks, tiles, tiles_x, width, height);
+    return (int)cudaGetLastError();
+  }
+  static int info(int* out) {
+    return fill_kernel_info(bwd_ablate_kernel<V, M, kDense, S, kZero>, kPix,
+                            0, out);
+  }
+};
+
+// The instances built, in kernels/ablate.py BWD_INSTANCES' order: the
+// forms of full (ablate.BUILT_FORMS), then the other variants.
+template <typename F>
+int with_instance(int i, F&& f) {
+  switch (i) {
+    case 0: return f(Inst<kFull>());                          // bwd/full
+    case 1: return f(Inst<kFull, kVpu>());                    // geom_vpu
+    case 2: return f(Inst<kFull, kDotF32, true>());           // cst_dense
+    case 3: return f(Inst<kFull, kVpu, true>());   // geom_vpu+cst_dense
+    case 4: return f(Inst<kFull, kDotF32>());                 // g16
+    case 5: return f(Inst<kFull, kVpu, false, kRow>());       // catstore
+    case 6: return f(Inst<kFull, kVpu, false, kCols, true>());  // nozero
+    case 7: return f(Inst<kFull, kVpu, false, kRow, true>());   // all
+    case 8: return f(Inst<kGeomNostore>());
+    case 9: return f(Inst<kGeomConcat>());
+    case 10: return f(Inst<kNoGeom>());
+    case 11: return f(Inst<kNoPrefix>());
+    case 12: return f(Inst<kRecomputeOnly>());
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// The forms of `full` built (kernels/ablate.py BUILT_FORMS): moments,
-// dense, row store, kernel zeroing.
-#define MSGS_BWD_FORM(M, D, R, Z)                                          \
-  if (moments == M && dense == D && row_store == R && kernel_zero == Z)    \
-    return launch<kFull, M, D, R ? kRow : kCols, Z>(                        \
-        pay, st, sv, c, d, n_blocks, tiles, tiles_x, width, height, s);
-
 extern "C" int msgs_bwd_ablate(const void* payload, const void* sub_tile,
                                const void* sub_valid, const void* cst,
-                               void* dpay, int n_blocks, int variant,
-                               int moments, int dense, int row_store,
-                               int kernel_zero, int tiles, int tiles_x,
-                               int width, int height, void* stream) {
+                               void* dpay, int n_blocks, int instance,
+                               int tiles, int tiles_x, int width, int height,
+                               void* stream) {
   if (n_blocks <= 0 || tiles <= 0) return 0;
-  const float* pay = (const float*)payload;
-  const int* st = (const int*)sub_tile;
-  const int* sv = (const int*)sub_valid;
-  const float* c = (const float*)cst;
-  float* d = (float*)dpay;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (variant == kFull) {
-    MSGS_BWD_FORM(kBf16, false, false, false)    // bwd/full
-    MSGS_BWD_FORM(kVpu, false, false, false)     // geom_vpu, colstore
-    MSGS_BWD_FORM(kDotF32, true, false, false)   // cst_dense
-    MSGS_BWD_FORM(kVpu, true, false, false)      // geom_vpu+cst_dense
-    MSGS_BWD_FORM(kDotF32, false, false, false)  // g16
-    MSGS_BWD_FORM(kVpu, false, true, false)      // catstore
-    MSGS_BWD_FORM(kVpu, false, false, true)      // nozero
-    MSGS_BWD_FORM(kVpu, false, true, true)       // all
-    return (int)cudaErrorInvalidValue;
-  }
-  if (moments != kBf16 || dense || row_store || kernel_zero)
-    return (int)cudaErrorInvalidValue;
-  switch (variant) {
-    case kGeomNostore:
-      return launch<kGeomNostore>(pay, st, sv, c, d, n_blocks, tiles,
-                                  tiles_x, width, height, s);
-    case kGeomConcat:
-      return launch<kGeomConcat>(pay, st, sv, c, d, n_blocks, tiles, tiles_x,
-                                 width, height, s);
-    case kNoGeom:
-      return launch<kNoGeom>(pay, st, sv, c, d, n_blocks, tiles, tiles_x,
-                             width, height, s);
-    case kNoPrefix:
-      return launch<kNoPrefix>(pay, st, sv, c, d, n_blocks, tiles, tiles_x,
-                               width, height, s);
-    case kRecomputeOnly:
-      return launch<kRecomputeOnly>(pay, st, sv, c, d, n_blocks, tiles,
-                                    tiles_x, width, height, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return with_instance(instance, [&](auto inst) {
+    return decltype(inst)::launch(
+        (const float*)payload, (const int*)sub_tile, (const int*)sub_valid,
+        (const float*)cst, (float*)dpay, n_blocks, tiles, tiles_x, width,
+        height, (cudaStream_t)stream);
+  });
+}
+
+// An instance's build: registers, stack bytes, static and dynamic shared
+// memory, and CTAs per SM at its launch configuration.
+extern "C" int msgs_bwd_ablate_info(int instance, int* out) {
+  return with_instance(instance,
+                       [&](auto inst) { return decltype(inst)::info(out); });
 }

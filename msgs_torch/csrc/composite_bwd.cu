@@ -35,13 +35,13 @@
 //     column of its two rows), whose chains interleave. At each pixel the
 //     lanes compute α_i, then the 5-round Hillis-Steele prefix product of
 //     (1 − α) and prefix sum of w·φ run across lanes with __shfl_up_sync
-//     (lane i ≥ K takes c_i·c_{i−K}, c_i + c_{i−K}: hs_mul_round's and
-//     hs_add_round's operands for entry i), so T, alive, done and every
-//     dpower are the bits the thread-per-pixel form computes;
+//     (lane i ≥ K takes c_i·c_{i−K}, c_i + c_{i−K}: the operands of the
+//     plain version's Hillis-Steele rounds for entry i), so T, alive, done
+//     and every dpower are the bits the thread-per-pixel form computes;
 //   - the per-entry sum of each quantity over the warp's 32 pixels is the
-//     tree of warp_transpose_sum (composite_common.cuh), which the first
-//     port used: pixels p and p^16 first, then across bits 3, 2, 1 and 0 of
-//     the pixel. The pair (j, j+16) is its first level; visiting j in 4-bit
+//     tree of the first port's warp butterfly (kernels/ablate.py
+//     pixel_tree_sum): pixels p and p^16 first, then across bits 3, 2, 1
+//     and 0 of the pixel. The pair (j, j+16) is its first level; visiting j in 4-bit
 //     bit-reversed order (0, 8, 4, 12, 2, ...) makes every further level
 //     join two neighbours, as a binary counter does: two leaves in a row
 //     are joined in registers, and at most 3 pending partials per quantity

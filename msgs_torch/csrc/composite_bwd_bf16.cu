@@ -32,9 +32,10 @@
 //     then the 5-round
 //     Hillis-Steele prefix product of (1 − α) and prefix sum of bf16(w·φ)
 //     run across lanes with __shfl_up_sync: lane i ≥ K
-//     takes c_i·c_{i−K} (c_i + c_{i−K}), the operands of hs_mul_round
-//     (hs_add_round) for entry i, so under -fmad=false T, alive and done are
-//     the forward's bits and the CTA stops where the forward stopped;
+//     takes c_i·c_{i−K} (c_i + c_{i−K}), the operands of the plain
+//     version's Hillis-Steele rounds for entry i, so under -fmad=false T,
+//     alive and done are the forward's bits and the CTA stops where the
+//     forward stopped;
 //   - each lane adds its entry's terms over the pixels in registers: the
 //     moments Σ bf16(dp), Σ bf16(dp·dx)·[1, x, y], Σ bf16(dp·dy)·[1, y] of
 //     the mean-centred dpower against the exact-in-bf16 basis, and

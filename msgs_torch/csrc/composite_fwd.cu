@@ -15,8 +15,8 @@
 // out (tiles, 8, 256): r g b depth acc T done pad. One thread per pixel.
 //
 // Arithmetic order follows _block_forward (composite.py:224-243) and the
-// tile-local α of _BlockCtx (:297-311), per 32-entry sub-block
-// (composite_common.cuh:composite_sub):
+// tile-local α of _BlockCtx (:297-311), per 32-entry sub-block (the plain
+// version's msgs_torch/kernels/composite.py:_sub_forward):
 //   α_i = mask ? min(0.99, o·exp(power)) : 0, power in tile-local offsets;
 //   cum_incl = the 5-round Hillis-Steele product of (1−α) (as
 //   _sub_cumprod_static builds it), cum_excl its shift;
@@ -43,11 +43,11 @@
 // computes the current one, which it reads as broadcasts; lane i also makes
 // entry i's means tile-local once (the subtraction splat_alpha makes per
 // pixel); one __syncwarp per sub-block. The sub-block step is
-// composite_sub's arithmetic with α kept in shared memory, so only the 32
+// that arithmetic with α kept in shared memory, so only the 32
 // prefix products stay in registers, and __launch_bounds__ caps the build
 // at what 16 resident warps leave (96 registers, no stack). The first port
 // ran one 256-thread CTA per tile with two CTA barriers per sub-block and
-// composite_sub's α and products both in registers: 186 registers, one CTA
+// the sub-block's α and products both in registers: 186 registers, one CTA
 // per SM. Small CTAs let a long tile's strips run on different SMs.
 #include "composite_common.cuh"
 #include "kernel_info.cuh"
@@ -79,8 +79,8 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// composite_sub (composite_common.cuh), bit for bit, from a staged
-// sub-block whose F_MX, F_MY hold the tile-local means (mx − ox, my − oy,
+// One sub-block of the forward (the arithmetic above), bit for bit, from a
+// staged sub-block whose F_MX, F_MY hold the tile-local means (mx − ox, my − oy,
 // as splat_alpha computes them; splat_alpha at origin 0 then subtracts 0,
 // which is exact), keeping α in shared memory (al, stride 32: entry i of
 // this lane at al[32·i]) so that only the prefix product lives in

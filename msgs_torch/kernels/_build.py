@@ -50,6 +50,10 @@ _SIGNATURES = {
     "msgs_composite_fwd_info": [_I, _P],
     "msgs_composite_bwd_info": [_I, _P],
     "msgs_composite_bwd_bf16_info": [_I, _P],
+    # (ablate.ALL_FWD index, or len(ALL_FWD) for the running sum; ablate.
+    #  BWD_INSTANCES index)
+    "msgs_fwd_ablate_info": [_I, _P],
+    "msgs_bwd_ablate_info": [_I, _P],
     # (payload, first_sub, n_sub, out, tiles, tiles_x, width, height, stream)
     "msgs_composite_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (payload, first_sub, n_sub, res, cot, dpay, tiles, tiles_x, width,
@@ -66,10 +70,9 @@ _SIGNATURES = {
     # (payload, sub_tile, sub_valid, out, written, partial, n_blocks,
     #  variant, tiles, tiles_x, width, height, stream)
     "msgs_fwd_ablate": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # (payload, sub_tile, sub_valid, cst, dpay, n_blocks, variant, moments,
-    #  dense, row_store, kernel_zero, tiles, tiles_x, width, height, stream)
-    "msgs_bwd_ablate": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _I, _P],
+    # (payload, sub_tile, sub_valid, cst, dpay, n_blocks, instance (ablate.
+    #  BWD_INSTANCES), tiles, tiles_x, width, height, stream)
+    "msgs_bwd_ablate": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -174,9 +174,19 @@ BWD3_RUNS = {
 _AXES = {"moments": MOMENTS, "constants": ("gathered", "dense"),
          "group": (8, 16), "store": ("columns", "row"),
          "zeroing": ("caller", "kernel")}
-# The forms csrc/bwd_ablate.cu builds (group is not a kernel parameter).
-BUILT_FORMS = {f._replace(group=8) for f in
-               (BwdForm(), *BWD2_RUNS.values(), *BWD3_RUNS.values())}
+# The instances csrc/bwd_ablate.cu builds, in its order (the `instance` of
+# msgs_bwd_ablate and msgs_bwd_ablate_info): bwd/full's form and the forms
+# the scripts' runs take (group is not a kernel parameter), then the other
+# variants in the default form.
+BWD_INSTANCES = (
+    ("full", BwdForm()), ("full", BwdForm("vpu")),
+    ("full", BwdForm("dot_f32", constants="dense")),
+    ("full", BwdForm("vpu", constants="dense")),
+    ("full", BwdForm("dot_f32")), ("full", BwdForm("vpu", store="row")),
+    ("full", BwdForm("vpu", zeroing="kernel")),
+    ("full", BwdForm("vpu", store="row", zeroing="kernel")),
+    *((v, BwdForm()) for v in BWD_VARIANTS[1:]))
+BUILT_FORMS = {f for v, f in BWD_INSTANCES if v == "full"}
 # Blocks per chunk of the plain versions' block-wise passes: bounds their
 # (chunk, 128, 256) intermediates. Blocks are independent there, so the
 # chunking changes no value.
@@ -742,7 +752,8 @@ def _bwd_cuda(payload, sub_tile, sub_valid, cst, variant, form, tiles_x,
     tiles = n_tiles(tiles_x, height)
     n_cover = _check_bwd(payload, sub_tile, sub_valid, cst, variant, form,
                          tiles)
-    if form._replace(group=8) not in BUILT_FORMS:
+    key = (variant, form._replace(group=8))
+    if key not in BWD_INSTANCES:
         raise ValueError(f"bwd_ablate: {form} is not built in "
                          f"csrc/bwd_ablate.cu (ablate.BUILT_FORMS)")
     cst = cst.contiguous()
@@ -753,11 +764,8 @@ def _bwd_cuda(payload, sub_tile, sub_valid, cst, variant, form, tiles_x,
     lib = _build.load()
     err = lib.msgs_bwd_ablate(
         payload.data_ptr(), sub_tile.data_ptr(), sub_valid.data_ptr(),
-        cst.data_ptr(), dpay.data_ptr(), n_cover,
-        BWD_VARIANTS.index(variant), MOMENTS.index(form.moments),
-        int(form.constants == "dense"), int(form.store == "row"),
-        int(form.zeroing == "kernel"), tiles, tiles_x, width, height,
-        _build.stream_ptr(payload))
+        cst.data_ptr(), dpay.data_ptr(), n_cover, BWD_INSTANCES.index(key),
+        tiles, tiles_x, width, height, _build.stream_ptr(payload))
     _build.check(err, f"bwd_ablate {variant} {form}")
     _build.launch_counts["bwd_ablate"] += 1
     return dpay

@@ -41,18 +41,11 @@ import torch
 from msgs_torch import resolve_device
 from msgs_torch.kernels import _build, ablate
 from msgs_torch.kernels import composite as comp
-from msgs_torch.tools import clock_name, device_name, time_ms
+from msgs_torch.tools import clock_name, device_name, time_ms, work
 from msgs_torch.tools import exp_fwd_ablate as fa
 
 W, H, ENTRY_CAP = fa.W, fa.H, fa.ENTRY_CAP
 TILES_X = (W + 15) // 16
-# fp32 operations per (entry, pixel) pair of horner (fwd_ablate.cu
-# horner_alpha), counted from the source as exp_fwd_ablate.OPS_PER_PAIR
-# counts: u and v 4, the power 6, expf 4, o·g 1, the mask 3, the clamp
-# and the select 2: 20; then pairs_only's prefix product and w (9) and
-# colour sums (10). The per-entry coefficients (13 operations per entry)
-# are under 0.1% of it. A backward form's: exp_fwd_ablate.bwd_ops.
-OPS_HORNER = 20 + 9 + 10
 # Both scripts' backward runs under the names they print.
 BWD_RUNS = {**{f"bwd/{k}": v for k, v in ablate.BWD2_RUNS.items()},
             **ablate.BWD3_RUNS}
@@ -80,13 +73,13 @@ def setup(argv, doc: str):
     nb = int((sv[::4] == 1).sum())
     print(f"{payload.shape[0]} blocks, {int(sv.sum())} valid subs, {nb} "
           f"computed blocks on {dev} ({device_name(dev)})", flush=True)
-    subs = fa.work_subs(st, sv, ablate.fwd_ablate_plain(
-        payload, st, sv, "full", TILES_X, W, H)[0])
+    needs = work.stream_work(st, sv, ablate.fwd_ablate_plain(
+        payload, st, sv, "full", TILES_X, W, H)[0], TILES_X, W, H)
     res = comp.composite(payload, st, sv, tls, tiles, TILES_X, W, H)
     cst = fa.make_cst(res.detach())
     # The rows g_r g_g g_b, total_phi and T_final·g_T of each tile read.
     cst_bytes = int(torch.unique(st[:4 * nb]).numel()) * 5 * comp.NPIX * 4
-    return dict(dev=dev, stream=(payload, st, sv), subs=subs, cst=cst,
+    return dict(dev=dev, stream=(payload, st, sv), needs=needs, cst=cst,
                 cst_bytes=cst_bytes, reps=20 if dev.type == "cuda" else 2)
 
 
@@ -124,8 +117,9 @@ def horner_record(env) -> dict:
            "written": int(written.sum()),
            "max_abs_sum": float(sums.abs().max()) if sums.numel() else 0.0,
            "kernel_ms": fa.kernel_ms(call) if dev.type == "cuda" else None,
-           **fa.bound(OPS_HORNER, *fa._work(
-               env["subs"]["all"], int(written.sum()) * fa.SLOT_BYTES, st))}
+           **work.bound(work.FWD_OPS["horner"], *work.pairs_and_bytes(
+               env["needs"][work.FWD_NEEDS["horner"]],
+               int(written.sum()) * work.SLOT_BYTES, st))}
     rec["launches"] = _build.launch_counts["fwd_ablate"] - before
     return rec
 
@@ -159,7 +153,7 @@ def bwd_records(env, runs: dict, prefix: str = "") -> list:
         g2, w2 = got.reshape(-1, comp.NFEAT), want.reshape(-1, comp.NFEAT)
         err, exact = fa.held(prefix + name, g2, w2, fa.grad_tols(w2))
         ms = time_ms(call, dev, env["reps"])
-        n_subs = env["subs"]["unsaturated"]
+        need = env["needs"][work.BWD_NEEDS["full"]]
         # dpay is written once in every form: the covered blocks' rows.
         n_cover = payload.shape[0] // form.group * form.group
         rec = {"name": prefix + name, "ms": ms,
@@ -169,9 +163,10 @@ def bwd_records(env, runs: dict, prefix: str = "") -> list:
                "max_abs_err": err, "exact": exact, "form": form._asdict(),
                "kernel_ms": fa.kernel_ms(call) if dev.type == "cuda"
                else None,
-               **fa.bound(fa.bwd_ops(form.moments), *fa._work(
-                   n_subs, n_cover * 4 * fa.SUB_BYTES + env["cst_bytes"],
-                   st))}
+               **work.bound(work.bwd_ops("full", form.moments),
+                            *work.pairs_and_bytes(
+                                need, n_cover * 4 * work.SUB_BYTES
+                                + env["cst_bytes"], st))}
         rec["launches"] = _build.launch_counts["bwd_ablate"] - before
         recs.append(rec)
         _show(rec, clock_name(dev))

@@ -24,8 +24,12 @@ name, ms, launches (of the CUDA kernels over the check and the timed
 calls: 0 on the CPU), plain_ms,
 max_abs_err (to the plain version), exact (bit for bit, up to the sign of
 a zero), kernel_ms (on the card: device ms per call of each kernel and
-the events it kept, from a profiler trace) and the bound: bound_ms, bound_by ("bytes" or "operations"), with
-the pairs, operations and bytes it counts on this run's stream.
+the events it kept, from a profiler trace) and the bound: bound_ms,
+bound_by ("bytes" or "operations"), with the pairs, operations and bytes
+it counts on this run's stream (msgs_torch/tools/work.py: the operations
+per pair of each variant, and the pairs before each 32-pixel strip is
+done, of the subs in their run's first block, or of every computed block,
+as the variant's function needs them).
 `main(..., n_blocks=K)` cuts the stream to its first K blocks.
 """
 from __future__ import annotations
@@ -44,55 +48,10 @@ from msgs_torch.kernels.binning import bin_gaussians
 from msgs_torch.kernels.preprocess import preprocess
 from msgs_torch.kernels.rasterize import gather_payload
 from msgs_torch.profile_render import bench_scene
-from msgs_torch.tools import clock_name, device_name, time_ms, trace_ms
+from msgs_torch.tools import clock_name, device_name, time_ms, trace_ms, work
 
 W, H, N, ENTRY_CAP = 1920, 1080, 100_000, 1_572_864
 COT = 0.1
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, fp32 operations/s.
-PEAK_BYTES = 3.35e12
-PEAK_FP32 = 67e12
-# fp32 operations per (entry, pixel) pair, counted from the sources (each
-# add, multiply, compare, select, min and max 1; expf 4):
-#   composite_sub (composite_common.cuh), the tile variants and no_states:
-#   46, the first port's kernel 3 count (chip_smoke.py OPS_PER_PAIR now
-#   counts what the compositor needs, without selects or per-pair
-#   tile-local means: 41);
-#   the pairs variants' α: 2 offsets, 9 for the power, expf, o·g, 3 for the
-#   mask, the clamp and the select: 21; the prefix product and w 9 (1 − α,
-#   ~4 multiplies, the compare and its select, 2 multiplies); the colour
-#   sums 10; a max 1;
-#   bwd_ablate.cu (bwd_ops): the forward's 46, φ 5, T_i, T_i·φ and w·φ
-#   3, the wφ prefix ~4, dα and dpower 9 (67); then per summed quantity
-#   the operations that form its term and one butterfly add. The six
-#   moments' terms need 5 multiplies in every form (dot_f32: dpower times
-#   the monomials x², xy, y², x, y, which are per pixel; vpu and kernel 4:
-#   dp_x = dpower·x, dp_y = dpower·y, dp_x·x, dp_x·y, dp_y·y), dot_bf16
-#   (bwd/full) also the rounding of dpower, 6; the three colour sums w·g
-#   3. So a form of full: 67 + 5 or 6 + 6 + 3 + 3 = 84 or 85; geom_nostore
-#   and geom_concat as full; no_prefix without the prefix, 81; no_geom
-#   Σ dpower and the colour sums, 67 + 1 + 6 = 74; recompute_only the
-#   forward and Σ w, 47.
-_ALPHA, _SCAN, _ACC = 21, 9, 10
-_BWD_BASE = 46 + 5 + 3 + 4 + 9
-MOMENT_OPS = {"dot_bf16": 6, "dot_f32": 5, "vpu": 5}
-
-
-def bwd_ops(moments: str = "dot_bf16") -> int:
-    """fp32 operations per pair of bwd_ablate's full in a moment form."""
-    return _BWD_BASE + MOMENT_OPS[moments] + 6 + 3 + 3
-
-
-OPS_PER_PAIR = {
-    "full": 46, "dump_last": 46, "no_dump": 46, "small_out": 46,
-    "no_states": 46,
-    "pairs_only": _ALPHA + _SCAN + _ACC, "pairs_noaccs": _ALPHA + _SCAN + 1,
-    "pairs_noscan": _ALPHA + _ACC, "pairs_alpha": _ALPHA + 1,
-    "bwd/full": bwd_ops(), "bwd/geom_nostore": bwd_ops(),
-    "bwd/geom_concat": bwd_ops(), "bwd/no_geom": _BWD_BASE + 1 + 6,
-    "bwd/no_prefix": bwd_ops() - 4, "bwd/recompute_only": 46 + 1,
-}
-SLOT_BYTES = comp.NOUT * comp.NPIX * 4
-SUB_BYTES = 32 * comp.NFEAT * 4
 FWD_TOL = {comp.O_R: 1e-5, comp.O_G: 1e-5, comp.O_B: 1e-5,
            comp.O_DEPTH: 1e-4, comp.O_ACC: 1e-5, comp.O_T: 1e-5,
            comp.O_DONE: 0.0, 7: 0.0}
@@ -158,6 +117,58 @@ def clustered_stream(dev, n_blocks: int = 16, m: int = 300, seed: int = 0):
     return _cut(scene_stream(dev, scene, W, H, 2048), n_blocks)
 
 
+# staggered_stream: the sub of tile 0's run that saturates each strip.
+DONE_AT = (1, 2, 3, 3, 4, 4, 5, 6)
+
+
+def staggered_stream(dev):
+    """A hand-made check stream of 8 blocks at the script's camera. Tile 0's
+    run holds subs 0-15; strip u of it (pixels 32u..32u+31, rows 2u and
+    2u+1) is saturated by 13 opaque splats in sub DONE_AT[u] and touched by
+    nothing else but faint wide splats, so its strips finish at different
+    subs on both sides of the boundary between blocks 0 and 1, and the
+    tile saturates in sub 6, before its run's last block: blocks 2 and 3
+    are skipped. Tiles 1 and 2 hold subs 16-21 and 22-27 of faint splats
+    (runs that cross blocks 4-5 and 5-6); block 7 does not compute.
+    Returns (payload, sub_tile, sub_valid, tile_last_sub)."""
+    rng = np.random.default_rng(7)
+    pay = np.zeros((8 * 4, 32, comp.NFEAT), np.float32)
+
+    def faint(n, ox):
+        rows = np.zeros((n, comp.NFEAT), np.float32)
+        rows[:, 0] = ox + rng.uniform(6, 10, n)
+        rows[:, 1] = rng.uniform(6, 10, n)
+        rows[:, 2] = rows[:, 4] = rng.uniform(0.015, 0.025, n)
+        rows[:, 3] = rng.uniform(-0.002, 0.002, n)
+        rows[:, 5] = rng.uniform(0.03, 0.06, n)
+        rows[:, 6:11] = rng.uniform(0.1, 1.0, (n, 5))
+        return rows
+
+    def strip(u):
+        # α ≈ 0.53 on rows 2u and 2u+1, masked (below 1/255) beyond them.
+        rows = np.zeros((13, comp.NFEAT), np.float32)
+        rows[:, 0] = rng.uniform(6, 10, 13)
+        rows[:, 1] = 2 * u + 0.5
+        rows[:, 4] = 5.0
+        rows[:, 5] = 0.99
+        rows[:, 6:11] = rng.uniform(0.1, 1.0, (13, 5))
+        return rows
+
+    for k in range(16):
+        rows = [strip(u) for u in range(8) if DONE_AT[u] == k]
+        n = sum(len(r) for r in rows)
+        pay[k] = np.concatenate(rows + [faint(32 - n, 0.0)])
+    for k in range(16, 28):
+        pay[k] = faint(32, 16.0 if k < 22 else 32.0)
+    st = np.array([0] * 16 + [1] * 6 + [2] * 10, np.int32)
+    sv = (np.arange(32) < 28).astype(np.int32)
+    tiles = ablate.n_tiles((W + 15) // 16, H)
+    tls = np.full(tiles, -1, np.int32)
+    tls[:3] = (15, 21, 27)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    return t(pay.reshape(8, 128, comp.NFEAT)), t(st), t(sv), t(tls)
+
+
 def make_cst(res, cot: float = COT):
     """The backward's constant rows (tools/exp_fwd_ablate.py:257-264) from
     the compositor output res (tiles, 8, 256) and a constant cotangent:
@@ -196,46 +207,6 @@ def grad_tols(want):
     """{column: 3e-5·max|column| + 1e-6} of want (rows, columns)."""
     return {c: 3e-5 * max(float(want[:, c].abs().max()), 1e-8) + 1e-6
             for c in range(want.shape[1])}
-
-
-def work_subs(st, sv, states) -> dict:
-    """Subs of this stream each variant's function needs evaluated, from
-    the forward's `full` state slots: every computed sub ("all"); those
-    reached before their tile saturates ("unsaturated": the state-keeping
-    variants); those in their run's first block ("first_block": the
-    variants that read the zero state after it)."""
-    nb = int((sv[::4] == 1).sum())
-    s = st[:4 * nb].long()
-    j = torch.arange(4 * nb, device=st.device)
-    head = torch.ones_like(s, dtype=torch.bool)
-    head[1:] = s[1:] != s[:-1]
-    start = torch.cummax(torch.where(head, j, 0), 0).values
-    sat_before = torch.zeros_like(head)
-    sat_before[1:] = (~head[1:]) & (states[:4 * nb - 1, comp.O_DONE].sum(-1)
-                                    >= comp.NPIX)
-    return {"all": 4 * nb, "unsaturated": int((~sat_before).sum()),
-            "first_block": int((j // 4 == start // 4).sum())}
-
-
-# The subs each variant's function needs (work_subs).
-NEEDS = {"pairs_only": "all", "pairs_noaccs": "all", "pairs_noscan": "all",
-         "pairs_alpha": "all", "no_states": "first_block",
-         "bwd/full": "unsaturated", "bwd/no_prefix": "unsaturated"}
-
-
-def _work(n_subs, out_bytes, st):
-    """(pairs, bytes) of n_subs subs: their payload read once, out_bytes
-    written, the stream's ids read once."""
-    return (n_subs * 32 * comp.NPIX,
-            n_subs * SUB_BYTES + out_bytes + 8 * st.numel())
-
-
-def bound(ops_per_pair, pairs, nbytes) -> dict:
-    t = {"bytes": nbytes / PEAK_BYTES * 1e3,
-         "operations": pairs * ops_per_pair / PEAK_FP32 * 1e3}
-    by = max(t, key=t.get)
-    return {"bound_ms": t[by], "bound_by": by, "pairs": pairs,
-            "operations": pairs * ops_per_pair, "bytes": nbytes}
 
 
 KERNELS = ("fwd_tile_kernel", "fwd_block_kernel", "running_sum_kernel",
@@ -285,8 +256,8 @@ def main(argv=None, n_blocks=None) -> list:
           f"{int((sv[::4] == 1).sum())} computed blocks on {dev} "
           f"({device_name(dev)})", flush=True)
     # The tile states of `full` give the work each function needs.
-    subs = work_subs(st, sv, ablate.fwd_ablate_plain(
-        *sargs, "full", tiles_x, W, H)[0])
+    needs = work.stream_work(st, sv, ablate.fwd_ablate_plain(
+        *sargs, "full", tiles_x, W, H)[0], tiles_x, W, H)
     records = []
     if args.which in ("fwd", "all"):
         print("=== forward ablations ===", flush=True)
@@ -314,9 +285,9 @@ def main(argv=None, n_blocks=None) -> list:
                    "max_abs_err": err, "exact": exact,
                    "written": int(written.sum()),
                    "kernel_ms": split,
-                   **bound(OPS_PER_PAIR[v], *_work(
-                       subs[NEEDS.get(v, "unsaturated")],
-                       int(written.sum()) * SLOT_BYTES, st))}
+                   **work.bound(work.FWD_OPS[v], *work.pairs_and_bytes(
+                       needs[work.FWD_NEEDS[v]],
+                       int(written.sum()) * work.SLOT_BYTES, st))}
             records.append(rec)
             print(f"fwd/{v:24s}: {ms:7.4f} ms ({clock}); plain "
                   f"{rec['plain_ms']:.4f} ms; max|Δ| {err:.3e}"
@@ -344,14 +315,14 @@ def main(argv=None, n_blocks=None) -> list:
             ms = time_ms(call, dev, reps)
             split = kernel_ms(call) if dev.type == "cuda" else None
             launches = _build.launch_counts["bwd_ablate"] - before
-            n_subs = subs[NEEDS.get(f"bwd/{v}", "first_block")]
+            need = needs[work.BWD_NEEDS[v]]
             rec = {"name": f"bwd/{v}", "ms": ms, "launches": launches,
                    "plain_ms": time_ms(lambda: ablate.bwd_ablate_plain(
                        *sargs, cst, v, tiles_x, W, H), dev, min(reps, 3)),
                    "max_abs_err": err, "exact": exact,
                    "kernel_ms": split,
-                   **bound(OPS_PER_PAIR[f"bwd/{v}"], *_work(
-                       n_subs, n_subs * SUB_BYTES + cst_bytes, st))}
+                   **work.bound(work.bwd_ops(v), *work.pairs_and_bytes(
+                       need, need[1] * work.SUB_BYTES + cst_bytes, st))}
             records.append(rec)
             print(f"bwd/{v:24s}: {ms:7.4f} ms ({clock}); plain "
                   f"{rec['plain_ms']:.4f} ms; max|Δ| {err:.3e}"

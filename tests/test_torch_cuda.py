@@ -500,6 +500,115 @@ def test_bwd_ablate_unbuilt_form_raises(dev):
                           form=form)
 
 
+# The redesigned ablation kernels: kernel 3's layout for the forward tile
+# variants (a warp per strip walking alone, dump_last's 8 strips in one CTA
+# deciding its skipped blocks after they stop), kernel 4's for the
+# backward (early stop, the non-advancing variants walk their run's first
+# block), on exp_fwd_ablate.staggered_stream: strips finish at chosen subs
+# on both sides of a block boundary and tile 0 saturates before its run's
+# last block.
+
+def _staggered(dev):
+    pay, st, sv, tls = exp_fwd_ablate.staggered_stream(dev)
+    res = comp.composite(pay, st, sv, tls, ablate.n_tiles(_ATX, _AH), _ATX,
+                         _AW, _AH)
+    return pay, st, sv, exp_fwd_ablate.make_cst(res)
+
+
+@pytest.mark.parametrize("variant", ablate.TILE_VARIANTS)
+def test_fwd_tile_variants_on_staggered_strips(dev, variant):
+    """Each strip stops at its own sub; written slots and values equal the
+    plain version's, dump_last's deferred slots of the skipped blocks 2
+    and 3 included."""
+    pay, st, sv, _ = _staggered(dev)
+    got, written = ablate.fwd_ablate(pay, st, sv, variant, _ATX, _AW, _AH)
+    torch.cuda.synchronize()
+    want, want_written = ablate.fwd_ablate_plain(pay, st, sv, variant, _ATX,
+                                                 _AW, _AH)
+    assert torch.equal(written, want_written), variant
+    assert torch.equal(got, want), (variant, float(
+        (got - want).abs().max()))
+    if variant == "dump_last":
+        assert bool(written[8:16].all())
+
+
+@pytest.mark.parametrize("run", ["nozero", "all"])
+def test_bwd_kernel_zeroing_forms_write_every_row(dev, run):
+    """Over a NaN-filled out, the kernel-zeroing forms write every row of
+    the covered blocks: the rows after tile 0 saturates (subs 7-15), which
+    the kernel does not compute, and block 7, which does not compute, as
+    zeros."""
+    pay, st, sv, cst = _staggered(dev)
+    out = torch.full_like(pay, float("nan"))
+    form = ablate.BWD3_RUNS[run]
+    got = ablate.bwd_ablate(pay, st, sv, cst, "full", _ATX, _AW, _AH,
+                            out=out, form=form)
+    torch.cuda.synchronize()
+    assert not got.isnan().any(), run
+    want = ablate.bwd_ablate_plain(pay, st, sv, cst, "full", _ATX, _AW, _AH,
+                                   form=form)
+    assert torch.equal(got, want), (run, float((got - want).abs().max()))
+    rows = got.reshape(32, 32, comp.NFEAT)
+    assert bool((rows[7:16] == 0).all()) and bool((rows[28:] == 0).all())
+    assert bool((rows[:7, :, 9:] == 0).all())
+
+
+@pytest.mark.parametrize("variant", [v for v in ablate.BWD_VARIANTS
+                                     if v not in ablate.ADVANCING])
+def test_bwd_non_advancing_variants_at_carried_subs(dev, variant):
+    """The variants that never advance the state read the zero state at
+    the subs after their run's first block (tile 0's subs 4-15, tile 1's
+    20-21, tile 2's 24-27): their rows are 0, the first blocks' are not,
+    and all equal the plain version's."""
+    pay, st, sv, cst = _staggered(dev)
+    got = ablate.bwd_ablate(pay, st, sv, cst, variant, _ATX, _AW, _AH)
+    torch.cuda.synchronize()
+    want = ablate.bwd_ablate_plain(pay, st, sv, cst, variant, _ATX, _AW,
+                                   _AH)
+    assert torch.equal(got, want), (variant, float(
+        (got - want).abs().max()))
+    rows = got.reshape(32, 32, comp.NFEAT)
+    carried = [*range(4, 16), 20, 21, *range(24, 28)]
+    assert bool((rows[carried] == 0).all())
+    assert bool((rows[:4] != 0).any()) and bool((rows[16:20] != 0).any())
+
+
+@pytest.mark.parametrize("i", range(len(ablate.BWD_INSTANCES)))
+def test_bwd_ablate_builds_fit(dev, i):
+    """Kernel 4's layout: no stack frame and 3 CTAs per SM for every
+    instance (the first port's built to 254-255 registers, one CTA)."""
+    info = _build.kernel_info("msgs_bwd_ablate_info", i)
+    assert info["stack_bytes"] == 0, (ablate.BWD_INSTANCES[i], info)
+    assert info["ctas_per_sm"] >= 3, (ablate.BWD_INSTANCES[i], info)
+
+
+@pytest.mark.parametrize("i", range(len(ablate.ALL_FWD) + 1))
+def test_fwd_ablate_builds_fit(dev, i):
+    """No stack frame anywhere; the tile variants at most 96 registers, 16
+    warps per SM (2-warp CTAs, dump_last's 8-warp ones); the block kernel
+    3 CTAs per SM (1 for no_states and pairs_only, whose chains spill at
+    80 and 128 registers). i = len(ALL_FWD) is the running sum."""
+    info = _build.kernel_info("msgs_fwd_ablate_info", i)
+    name = (ablate.ALL_FWD + ("running_sum",))[i]
+    assert info["stack_bytes"] == 0, (name, info)
+    if name in ablate.TILE_VARIANTS:
+        assert info["registers"] <= 96, (name, info)
+        assert info["ctas_per_sm"] >= (2 if name == "dump_last" else 8), \
+            (name, info)
+    elif name != "running_sum":
+        want = 1 if name in ("no_states", "pairs_only") else 3
+        assert info["ctas_per_sm"] >= want, (name, info)
+
+
+@pytest.mark.parametrize("variant", ablate.ALL_FWD)
+def test_fwd_ablate_kernel_is_deterministic(dev, variant):
+    pay, st, sv, _ = _ablate_stream(dev)
+    a, wa = ablate.fwd_ablate(pay, st, sv, variant, _ATX, _AW, _AH)
+    b, wb = ablate.fwd_ablate(pay, st, sv, variant, _ATX, _AW, _AH)
+    assert torch.equal(wa, wb)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 # The single-pass scan (kernels 1 and 2): one launch per call, status words
 # and tickets kept per device and stream from call to call.
 
