@@ -6,10 +6,11 @@ Builds the CUDA kernels from msgs_torch/csrc (into build/msgs_torch/), then:
 
   1. device: the card, and its name and power limit from nvidia-smi;
   2. build: the kernel build time and ptxas's register / shared-memory use;
-     for the scan (kernels 1, 2), the compositor (3, 4, 4b) and every
-     ablation kernel instance (7a-9), the runtime's registers, stack,
-     static and dynamic shared memory and CTAs per SM
-     (cudaFuncGetAttributes,
+     for the scan (kernels 1, 2), the compositor (3, 4, 4b), every
+     ablation kernel instance (7a-9), every gather instance (6: the
+     feature table's transpose and the gathers) and every probe instance
+     (5), the runtime's registers, stack, static and dynamic shared memory
+     and CTAs per SM (cudaFuncGetAttributes,
      cudaOccupancyMaxActiveBlocksPerMultiprocessor);
   3. kernels vs plain: each kernel against its plain PyTorch version on the
      card at the main path's shapes (scans exact, also at lengths around a
@@ -76,22 +77,31 @@ Builds the CUDA kernels from msgs_torch/csrc (into build/msgs_torch/), then:
      held against its plain version, bit for bit, on the render path's own
      stream (the serving model's feature table, 131,073 × 12 at capacity
      2^17, and binning's 1,687,552 gauss_id slots) in all three output
-     layouts, and timed there against table[gid]. A gather's bound counts
-     E·F floats written, E ids and each table row that gid references read
-     once (msgs_torch.tools.gather_bytes). The render path's
-     gather_payload is timed on the host clock and its device time read
-     from a profiler trace.
+     layouts, and timed there against table[gid]; the same from the
+     table's transpose (feature-major, 12 × 131,073: two launches, the
+     transpose and the gather), each layout equal bit for bit to its plain
+     version and to the row table's gather, the feature-major output timed
+     in turns with table_t[:, gid], also at the scripts' default. A
+     gather's bound counts E·F floats written, E ids and each table row
+     that gid references read once (msgs_torch.tools.gather_bytes). The
+     render path's gather_payload is timed on the host clock and its
+     device time read from a profiler trace.
  10. mxu: the ported pair-math probe (msgs_torch.tools.exp_mxu) runs
      in-process at its default, 14,336 blocks of 128 entries × a 16×16
      tile; counters are zeroed just before and read just after, and the
      probe kernel (csrc/mxu_probe.cu) must have run in each of the 12
      runs. Each run's summed output is within its row budget of its plain
      version (the script raises otherwise: 1e-5·max|row| at either
-     precision). Then, at 512 blocks, every variant and precision per
-     block against its plain version within the same budget, dfeat_nt's
-     df on a seeded nonzero g_rows (and its summed output); two launches
-     bit-identical; and pow_mxu's (block, pixel) cells that differ from
-     the plain version by a mask flip's size (MXU_FLIP_SIZE), counted.
+     precision). Each run prints its SASS instructions per pair (the
+     built library disassembled with cuobjdump) and the issue floor they
+     set (msgs_torch/tools/work.py:issue_floor_ms) at the card's
+     clocks.max.sm, 1,980 MHz (the clock under load is not measured).
+     Then, at 512 blocks, every variant and precision per block against
+     its plain version within the same budget, and the f32 runs bit for
+     bit, dfeat_nt's df on a seeded nonzero g_rows (and its summed
+     output); two launches bit-identical; and pow_mxu's (block, pixel)
+     cells that differ from the plain version by a mask flip's size
+     (MXU_FLIP_SIZE), counted.
  11. ablate: the ported compositor ablations (msgs_torch.tools.
      exp_fwd_ablate) run in-process in `all` mode at the script's stream
      (the bench scene at entry_cap 1,572,864, 14,336 blocks); counters
@@ -149,11 +159,14 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 # The H100's peaks and the compositor family's fp32 operations per (entry,
-# pixel) pair, one table for this script and the ablation tools.
+# pixel) pair, the pair-math probe's included: one table for this script
+# and the tools.
 from msgs_torch.tools.work import (MMA_FLOPS_PER_PAIR,  # noqa: E402
                                    OPS_PER_PAIR, OPS_PER_PAIR_BWD,
                                    OPS_PER_PAIR_BWD_BF16, PEAK_BF16,
-                                   PEAK_BYTES, PEAK_FP32, saturation_work)
+                                   MAX_SM_CLOCK_HZ, PEAK_BYTES, PEAK_FP32,
+                                   PROBE_OPS, PROBE_PAIRS_PER_PASS,
+                                   issue_floor_ms, saturation_work)
 
 W, H = 1920, 1080
 N = 100_000
@@ -255,7 +268,8 @@ def phase_build():
                   f"{line.split(':', 1)[1].strip()}; {stack}")
             name = None
     # The redesigned kernels' builds as the runtime reports them.
-    for label, entry, arg in KERNEL_INFO + ablate_kernel_info():
+    for label, entry, arg in (KERNEL_INFO + ablate_kernel_info()
+                              + gather_probe_kernel_info()):
         i = _build.kernel_info(entry, arg)
         print(f"[build] {label}: {i['registers']} registers, "
               f"{i['stack_bytes']} bytes of stack, {i['static_smem']} bytes "
@@ -292,6 +306,20 @@ def ablate_kernel_info() -> tuple:
         (f"bwd_ablate {v} ({f.moments}, {f.constants}, {f.store}, "
          f"{f.zeroing})", "msgs_bwd_ablate_info", i)
         for i, (v, f) in enumerate(ablate.BWD_INSTANCES))
+
+
+def gather_probe_kernel_info() -> tuple:
+    """KERNEL_INFO's entries for the gather (kernel 6: the transpose and
+    every gather instance) and the pair-math probe (kernel 5: every
+    variant, precision and output mode)."""
+    from msgs_torch.kernels import gather, mxu_probe
+    out = tuple((f"gather_rows {name} (kernel 6)", "msgs_gather_rows_info", i)
+                for i, name in enumerate(gather.GATHER_INSTANCES))
+    return out + tuple(
+        (f"mxu_probe {v}{' ' + p if p else ''}{' per block' if pb else ''} "
+         f"(kernel 5)",
+         "msgs_mxu_probe_info", mxu_probe.instance_index(v, p, pb))
+        for v, p, pb in mxu_probe.PROBE_INSTANCES)
 
 
 def device_text(split) -> str:
@@ -395,6 +423,20 @@ def trace_window(fn, kernel: str, reps: int = 5, pairs: int = 3) -> dict:
                 if gaps else None,
                 tail_us=None if tail is None else round(tail, 1)))
     return out
+
+
+def trace_total_ms(fn, reps: int = 10, kernels: int = 1, tries: int = 3):
+    """Device ms of one call of fn: the mean device ms of each of its
+    `kernels` kernels, summed, from a profiler trace of reps calls
+    (trace_ms). A trace can lose events, late in a long process all of a
+    kernel's: one that kept no event of some kernel is taken again, up to
+    `tries` traces; None if none kept them all."""
+    from msgs_torch.tools import trace_ms
+    for _ in range(tries):
+        tr = trace_ms(fn, reps)
+        if len(tr) >= kernels:
+            return sum(v["ms"] for v in tr.values())
+    return None
 
 
 def ms_text(ms) -> str:
@@ -1497,7 +1539,7 @@ def phase_tools(dev, st, smi_line):
           f"tools: render stream table {tuple(table.shape)}, gid {E} "
           f"{gid.dtype}")
     layouts = {"entry": None, "feature": None, "blocked": blk}
-    times = {}
+    times, dev_times = {}, {}
     for layout, block in layouts.items():
         got = gather_rows(table, gid, "rows", layout, block)
         torch.cuda.synchronize()
@@ -1508,6 +1550,8 @@ def phase_tools(dev, st, smi_line):
             f"on the render stream")
         times[layout] = median_ms(
             lambda: gather_rows(table, gid, "rows", layout, block), 20)
+        dev_times[layout] = trace_total_ms(
+            lambda: gather_rows(table, gid, "rows", layout, block))
     plain = median_ms(lambda: gather_rows_plain(table, gid), 20)
     lib = median_ms(lambda: table[gid], 20)
     # Rows of the table that gid references: the live Gaussians that
@@ -1518,8 +1562,76 @@ def phase_tools(dev, st, smi_line):
           f"{rows_read} rows referenced, {E} ids): equal to its plain "
           f"version bit for bit in every layout; kernel " + ", ".join(
               f"{k} {v:.4f} ms" for k, v in times.items())
-          + f"; plain {plain:.4f} ms, table[gid] {lib:.4f} ms; bound "
+          + f" (device " + ", ".join(f"{k} {ms_text(v)}"
+                                     for k, v in dev_times.items())
+          + f"); plain {plain:.4f} ms, table[gid] {lib:.4f} ms; bound "
           f"{bound:.4f} ms (bytes)", flush=True)
+
+    # The feature-table layouts (6b, 6c, 6e) on the same stream: the
+    # table's transpose, gathered into each layout, equal to the row
+    # table's gather and to the plain version bit for bit; 6b (feature
+    # out) timed in turns with table_t[:, gid], one PyTorch call of the
+    # same function.
+    table_t = table.t().contiguous()
+    times_t, dev_times_t = {}, {}
+    for layout, block in layouts.items():
+        got = gather_rows(table_t, gid, "features", layout, block)
+        torch.cuda.synchronize()
+        for want, what in ((gather_rows_plain(table_t, gid, "features",
+                                              layout, block),
+                            "its plain version"),
+                           (gather_rows(table, gid, "rows", layout, block),
+                            "the row table's gather")):
+            check(got.shape == want.shape and torch.equal(
+                got.view(torch.int32), want.view(torch.int32)),
+                f"tools: gather_rows features/{layout} differs from {what} "
+                f"on the render stream")
+        times_t[layout] = median_ms(
+            lambda: gather_rows(table_t, gid, "features", layout, block), 20)
+        dev_times_t[layout] = trace_total_ms(
+            lambda: gather_rows(table_t, gid, "features", layout, block),
+            kernels=2)
+    ms_6b, lib_t = paired_ms(
+        lambda: gather_rows(table_t, gid, "features", "feature"),
+        lambda: table_t[:, gid])
+    check(torch.equal(table_t[:, gid].view(torch.int32),
+                      gather_rows(table_t, gid, "features",
+                                  "feature").view(torch.int32)),
+          "tools: table_t[:, gid] differs from the feature-major gather")
+    print(f"[tools] gather_rows from the feature table ({F}x{rows}) on the "
+          f"render stream: equal to its plain version and to the row "
+          f"table's gather bit for bit in every layout; kernel " + ", ".join(
+              f"{k} {v:.4f} ms" for k, v in times_t.items())
+          + " (device, the transpose included: " + ", ".join(
+              f"{k} {ms_text(v)}" for k, v in dev_times_t.items())
+          + f"); in turns: feature {ms_6b:.4f} ms, table_t[:, gid] "
+          f"{lib_t:.4f} ms; bound {bound:.4f} ms (bytes); {smi_line}",
+          flush=True)
+
+    # 6b at the scripts' default (exp_gather's draw) in turns with
+    # table_t[:, gid].
+    rng = np.random.default_rng(0)
+    N_d, E_d, F_d = 100_000, 1 << 21, 16
+    tab_np = rng.normal(size=(N_d + 1, F_d)).astype(np.float32)
+    tab_t = torch.as_tensor(tab_np.T.copy(), device=dev)
+    gid_d = torch.as_tensor(rng.integers(0, N_d, E_d).astype(np.int32),
+                            device=dev)
+    ms_6b_d, lib_t_d = paired_ms(
+        lambda: gather_rows(tab_t, gid_d, "features", "feature"),
+        lambda: tab_t[:, gid_d])
+    check(torch.equal(tab_t[:, gid_d].view(torch.int32),
+                      gather_rows(tab_t, gid_d, "features",
+                                  "feature").view(torch.int32)),
+          "tools: table_t[:, gid] differs from the feature-major gather at "
+          "the default")
+    dev_6b_d = trace_total_ms(
+        lambda: gather_rows(tab_t, gid_d, "features", "feature"), kernels=2)
+    dev_lib_d = trace_total_ms(lambda: tab_t[:, gid_d], kernels=2)
+    print(f"[tools] scripts' default, in turns: pallas_vmem_take_lane (6b) "
+          f"{ms_6b_d:.4f} ms, table_t[:, gid] {lib_t_d:.4f} ms (device "
+          f"{ms_text(dev_6b_d)} and {ms_text(dev_lib_d)}, all kernels of a "
+          f"call)", flush=True)
+    del tab_t, gid_d, table_t
 
     # The render path's own gather: host clock against device time.
     def payload():
@@ -1551,6 +1663,12 @@ def phase_tools(dev, st, smi_line):
     rec = dict(ms=times["entry"], plain_ms=plain, library_ms=lib,
                bound_ms=bound, bound_by="bytes", max_abs_err=0.0, extra=dict(
                    shape=[E, F], rows_read=rows_read, ms_by_layout=times,
+                   ms_by_layout_feature_table=times_t,
+                   feature_in_turns_ms=[ms_6b, lib_t],
+                   default_6b_in_turns_ms=[ms_6b_d, lib_t_d],
+                   device_ms_by_layout=dev_times,
+                   device_ms_by_layout_feature_table=dev_times_t,
+                   default_6b_device_ms=[dev_6b_d, dev_lib_d],
                    script_ms={f"{script}:{v}": r["ms"]
                               for script, res in runs.items()
                               for v, r in res.items()},
@@ -1567,6 +1685,31 @@ def phase_tools(dev, st, smi_line):
 # feat·(1/255)·T, ≥ 1e-5 wherever feat·T ≥ 0.00255, where the rounding of
 # either precision moves it by < 2e-6 (PERF.md, the probe's per-run table).
 MXU_FLIP_SIZE = 1e-5
+
+
+def probe_sass_per_pair() -> dict:
+    """{(variant, precision): SASS instructions per pair} of the built
+    probe: the per-block instance's static instruction count (its loops
+    are unrolled; the summed instance adds its closers, run once a CTA)
+    over the pairs a thread covers in one pass of the segment loop
+    (work.PROBE_PAIRS_PER_PASS), the once-a-block code counted as if it
+    ran every pass: an upper estimate. Needs cuobjdump (msgs_torch.tools.
+    sass)."""
+    from msgs_torch.kernels import _build
+    from msgs_torch.kernels.mxu_probe import VARIANTS
+    from msgs_torch.tools import sass
+    counts = {}
+    for k, ins in sass.kernels(sass.disassemble(
+            _build.build_info["path"])).items():
+        counts[sass._CHECKOUT.sub("", k)] = len(ins)
+    out = {}
+    for v, p in PROBE_OPS:
+        tag = (f"mxu_probe_kernelILi{VARIANTS.index(v)}ELb"
+               f"{int(p == 'HIGH')}ELb1E")
+        found = [n for k, n in counts.items() if tag in k]
+        check(len(found) == 1, f"mxu: SASS of {tag}: {len(found)} kernels")
+        out[v, p] = found[0] / PROBE_PAIRS_PER_PASS
+    return out
 
 
 def phase_mxu(dev, smi_line):
@@ -1590,11 +1733,28 @@ def phase_mxu(dev, smi_line):
               f"mxu: {name}: {r}")
     check(counts["mxu_probe"] == sum(r["launches"] for r in runs),
           "mxu: launches outside the runs")
+    # Instructions per pair, and the issue floor they set at the card's
+    # clocks.max.sm (work.MAX_SM_CLOCK_HZ), printed here only: the floor is
+    # computed, not measured. Each run's device time from a profiler trace
+    # (its event time carries the host's call).
+    per_pair = probe_sass_per_pair()
+    pay = exp_mxu.make_payload(exp_mxu.DEFAULT_BLOCKS, dev)
+    g0 = torch.zeros((NDF, NPIX), dtype=torch.float32, device=dev)
+    for r in runs:
+        kw = {"g_rows": g0} if r["variant"] == "dfeat_nt" else {}
+        r.update(device_ms=trace_total_ms(
+            lambda: pair_block_probe(pay, r["variant"], r["precision"],
+                                     **kw)),
+                 sass_per_pair=per_pair[r["variant"], r["precision"]])
     print(f"[mxu] B={exp_mxu.DEFAULT_BLOCKS}: " + "; ".join(
-        f"{r['variant']} ({r['precision']}) {r['ms']:.4f} ms, plain "
+        f"{r['variant']} ({r['precision']}) {r['ms']:.4f} ms (device "
+        f"{ms_text(r['device_ms'])}), plain "
         f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-        f"({r['bound_by']}), max|Δ| {r['max_abs_err']:.3e} of "
-        f"{r['budget']:.3e}" for r in runs) + f"; {smi_line}", flush=True)
+        f"({r['bound_by']}), {r['sass_per_pair']:.2f} SASS a pair, floor "
+        f"{issue_floor_ms(r['sass_per_pair'], r['pairs']):.4f} ms at "
+        f"{MAX_SM_CLOCK_HZ / 1e6:g} MHz, max|Δ| "
+        f"{r['max_abs_err']:.3e} of {r['budget']:.3e}" for r in runs)
+        + f"; {smi_line}", flush=True)
 
     # Per block at B = 512; dfeat_nt on a seeded nonzero g_rows.
     pay = exp_mxu.make_payload(512, dev)
@@ -1614,6 +1774,12 @@ def phase_mxu(dev, smi_line):
         err, allow = exp_mxu.held_rows(f"mxu per block {name}", got, want,
                                        rel, dim)
         check(bool(want.abs().max() > 0), f"mxu: {name} per block is 0")
+        # The f32 runs keep the plain version's order of operations: bit
+        # for bit per block (dfeat_nt: its df).
+        if precision != "HIGH":
+            check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                  f"mxu: {name} per block is not bit for bit its plain "
+                  f"version (max|Δ| {err})")
         again = pair_block_probe(pay, variant, precision, per_block=True,
                                  **kw)
         check(torch.equal(got.view(torch.int32), again.view(torch.int32)),
@@ -1631,7 +1797,8 @@ def phase_mxu(dev, smi_line):
     b = pair_block_probe(pay, "base")
     check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
           "mxu: two launches differ")
-    print("[mxu] per block at B=512 (max|Δ| of the largest row allowance): "
+    print("[mxu] per block at B=512 (max|Δ| of the largest row allowance; "
+          "the f32 runs bit for bit): "
           + "; ".join(f"{k} {e:.3e} of {lim:.3e}"
                       for k, (e, lim) in per_block.items())
           + f"; two launches bit-identical; pow_mxu (block, pixel) cells "

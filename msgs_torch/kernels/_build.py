@@ -61,12 +61,18 @@ _SIGNATURES = {
     "msgs_composite_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "msgs_composite_bwd_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _P],
-    # (table, gid, out, rows, F, E, feat_table, block, stream)
-    "msgs_gather_rows": [_P, _P, _P, ctypes.c_longlong, _I,
+    # (gather.GATHER_INSTANCES index; probe instance index, kernels/
+    #  mxu_probe.py:PROBE_INSTANCES)
+    "msgs_gather_rows_info": [_I, _P],
+    "msgs_mxu_probe_info": [_I, _P],
+    # (table, gid, out, work, rows, F, E, feat_table, block, stream)
+    "msgs_gather_rows": [_P, _P, _P, _P, ctypes.c_longlong, _I,
                          ctypes.c_longlong, _I, ctypes.c_longlong, _P],
-    # (payload, g_rows, out, df_out, partial, B, variant, high, per_block,
-    #  stream)
-    "msgs_mxu_probe": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # (payload, g_rows, out, df_out, partial, partial slots, tickets, B,
+    #  variant, high, per_block, stream)
+    "msgs_mxu_probe": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
+    # (SMs, int out[2]): the probe's partial slots and ticket words
+    "msgs_mxu_probe_scratch": [_I, _P],
     # (payload, sub_tile, sub_valid, out, written, partial, n_blocks,
     #  variant, tiles, tiles_x, width, height, stream)
     "msgs_fwd_ablate": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

@@ -7,7 +7,9 @@ several memory layouts. The table is row-major (rows, F) or feature-major
 (F, rows); the output is entry-major (E, F), feature-major (F, E) or
 blocked feature-major (E/B, F, B) with `out[e // B, f, e % B] =
 table[gid[e], f]`. The kernel is msgs_torch/csrc/gather.cu; a gather is
-exact, so it equals the plain version bit for bit.
+exact, so it equals the plain version bit for bit. A feature table takes two
+launches: a transpose into a row-major workspace made for the call, then
+the gather (both counted in `launch_counts["gather_rows"]`).
 
 The render path's payload gather (kernels/rasterize.py:_GatherPayload)
 stays a `torch` row index, as the JAX package's stays XLA's.
@@ -20,6 +22,14 @@ from msgs_torch.kernels import _build
 
 TABLE_LAYOUTS = ("rows", "features")
 OUT_LAYOUTS = ("entry", "feature", "blocked")
+# The kernel's instances, by the index of msgs_gather_rows_info: the
+# transpose of a feature table, then the gathers from a row table with F/4
+# float4s a row (3, 4, or any), entry-major or blocked (through a shared
+# tile where the block is a multiple of 4, else with scalar stores).
+GATHER_INSTANCES = ("transpose", "entry Q=3", "entry Q=4", "entry Q=any",
+                    "blocked Q=3 tile", "blocked Q=4 tile",
+                    "blocked Q=any tile", "blocked Q=3 scalar",
+                    "blocked Q=4 scalar", "blocked Q=any scalar")
 
 
 def _check(table, gid, table_layout, out_layout, block):
@@ -82,13 +92,17 @@ def _gather_cuda(table, gid, table_layout, out_layout, block):
     out = torch.empty(shape, dtype=torch.float32, device=table.device)
     if E == 0:
         return out
+    # A feature table is transposed into this row-major scratch first.
+    feat = table_layout == "features"
+    work = torch.empty((n_rows, F), dtype=torch.float32,
+                       device=table.device) if feat else None
     lib = _build.load()
     err = lib.msgs_gather_rows(table.data_ptr(), gid.data_ptr(),
-                               out.data_ptr(), n_rows, F, E,
-                               int(table_layout == "features"), b,
-                               _build.stream_ptr(table))
+                               out.data_ptr(),
+                               work.data_ptr() if feat else None, n_rows, F,
+                               E, int(feat), b, _build.stream_ptr(table))
     _build.check(err, "gather_rows")
-    _build.launch_counts["gather_rows"] += 1
+    _build.launch_counts["gather_rows"] += 2 if feat else 1
     return out
 
 

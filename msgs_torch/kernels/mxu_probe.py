@@ -50,10 +50,13 @@ The plain version sums in the kernel's order: every product in k order
 (starting from the first term), the segmented product by the same 5-round
 tree, segments and blocks summed in order. Under the build's `-fmad=false`
 the kernel's f32 runs equal it per block to the last bit wherever the
-libm calls agree; the sum over blocks takes another order (see
-msgs_torch/csrc/mxu_probe.cu). The kernel is msgs_torch/csrc/mxu_probe.cu.
+libm calls agree; the sum over blocks takes another order, fixed by B and
+the grid, in one launch (see msgs_torch/csrc/mxu_probe.cu). The kernel is
+msgs_torch/csrc/mxu_probe.cu.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -69,9 +72,24 @@ VARIANTS = ("empty", "base", "exp2", "pow_mxu", "scan_mxu", "acc_tn",
 MATMUL_VARIANTS = ("pow_mxu", "scan_mxu", "acc_tn", "dfeat_nt")
 PRECISIONS = ("HIGHEST", "HIGH")
 LOG2E = 1.4426950408889634
-# Blocks one CTA of the kernel walks (csrc/mxu_probe.cu kBlocksPerCta): the
-# summed output adds per-CTA partials, so this fixes its order.
-BLOCKS_PER_CTA = 8
+# The kernel's grid is what the card holds at once (at most 3 CTAs of 128
+# threads an SM), each CTA a contiguous range of blocks; the summed output
+# adds the CTAs' (5, 256) partials in CTA order within groups of 32 CTAs,
+# then the groups' sums in order, so B and the grid fix its order. The
+# grid policy lives in csrc/mxu_probe.cu alone; msgs_mxu_probe_scratch
+# sizes the tickets and partials, which are kept per device and stream.
+# The kernel's instances, (variant, precision, per_block), in the order of
+# msgs_mxu_probe_info's index 4·variant + 2·(precision == "HIGH") +
+# per_block.
+PROBE_INSTANCES = tuple(
+    (v, p, pb) for v in VARIANTS
+    for p in ((None,) if v not in MATMUL_VARIANTS else PRECISIONS)
+    for pb in (False, True))
+
+
+def instance_index(variant: str, precision, per_block: bool) -> int:
+    return (4 * VARIANTS.index(variant) + 2 * (precision == "HIGH")
+            + int(per_block))
 # Blocks per chunk of the plain version: bounds its (chunk, 128, 256)
 # intermediates to 128 MiB each. Blocks are independent, so the chunking
 # changes no value.
@@ -243,6 +261,28 @@ def pair_block_probe_plain(payload: torch.Tensor, variant: str,
     return torch.cat(terms).sum(0)
 
 
+class ProbeState:
+    """The summed output's scratch on one stream, as many words and slots
+    as msgs_mxu_probe_scratch asks for the largest grid the card can hold:
+    the kernel's ticket words, zero when made and left zero by every
+    launch, and room for the grid's (5, 256) partials and its groups' sums.
+    Kernels on one stream run in order, so each call reuses them."""
+
+    def __init__(self, dev):
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        sizes = (ctypes.c_int * 2)()
+        err = _build.load().msgs_mxu_probe_scratch(sms,
+                                                    ctypes.addressof(sizes))
+        _build.check(err, "pair_block_probe scratch")
+        self.slots, words = sizes
+        self.tickets = torch.zeros(words, dtype=torch.int32, device=dev)
+        self.partial = torch.empty((self.slots, NACC, NPIX),
+                                   dtype=torch.float32, device=dev)
+
+
+_states: dict = {}     # (device index, stream) → ProbeState
+
+
 def _probe_cuda(payload, variant, precision, g_rows, per_block):
     if not payload.is_contiguous() or payload.data_ptr() % 16 != 0:
         raise ValueError("pair_block_probe: payload must be contiguous and "
@@ -255,23 +295,24 @@ def _probe_cuda(payload, variant, precision, g_rows, per_block):
                   else g_rows.contiguous())
     df = (torch.empty((B, BLOCK, NDF), **f32)
           if per_block and variant == "dfeat_nt" else None)
-    if per_block:
-        out, partial = torch.empty((B, NOUT, NPIX), **f32), None
-    else:
-        ctas = -(-B // BLOCKS_PER_CTA)
-        out = torch.empty((NOUT, NPIX), **f32)
-        partial = torch.empty((ctas, NOUT, NPIX), **f32)
-    ptr = lambda t: None if t is None else t.data_ptr()
+    stream = _build.stream_ptr(payload)
+    key = (dev.index, stream)
+    state = _states.get(key)
+    if state is None:
+        state = _states[key] = ProbeState(dev)
+    out = torch.empty((B, NOUT, NPIX) if per_block else (NOUT, NPIX), **f32)
     lib = _build.load()
-    err = lib.msgs_mxu_probe(payload.data_ptr(), ptr(g_rows), out.data_ptr(),
-                             ptr(df), ptr(partial), B,
+    err = lib.msgs_mxu_probe(payload.data_ptr(),
+                             None if g_rows is None else g_rows.data_ptr(),
+                             out.data_ptr(),
+                             None if df is None else df.data_ptr(),
+                             state.partial.data_ptr(), state.slots,
+                             state.tickets.data_ptr(), B,
                              VARIANTS.index(variant),
                              int(precision == "HIGH"), int(per_block),
-                             _build.stream_ptr(payload))
+                             stream)
     _build.check(err, "pair_block_probe")
-    # One per kernel launched: the probe, and for the summed output the
-    # block-ordered sum of its partials.
-    _build.launch_counts["mxu_probe"] += 1 if per_block else 2
+    _build.launch_counts["mxu_probe"] += 1
     return df if df is not None else out
 
 

@@ -21,7 +21,8 @@ warm-up: CUDA events on the card, the host clock on the CPU. `main` returns
 one record per run: variant, precision, ms, launches (of the CUDA kernels:
 0 on the CPU), plain_ms, max_abs_err (to the plain version),
 budget (the largest row's allowance) and bound_ms (the larger of the
-bytes, fp32-operations and tensor-core bounds; bound_by names it, tc_ms is
+bytes, fp32-operations and tensor-core bounds, from the one operation
+table, msgs_torch/tools/work.py:probe_bound; bound_by names it, tc_ms is
 the tensor-core work alone).
 """
 from __future__ import annotations
@@ -37,7 +38,7 @@ from msgs_torch.kernels import _build
 from msgs_torch.kernels.mxu_probe import (BLOCK, NDF, NFEAT, NPIX,
                                           pair_block_probe,
                                           pair_block_probe_plain)
-from msgs_torch.tools import clock_name, device_name, time_ms
+from msgs_torch.tools import clock_name, device_name, time_ms, work
 
 DEFAULT_BLOCKS = 14336
 # The JAX script's runs (tools/exp_mxu.py:240-251).
@@ -50,45 +51,6 @@ RUNS = (("empty", None), ("base", None), ("base", None), ("exp2", None),
 # row, at every precision: 3×TF32 keeps each operand to ~2⁻²² where f32
 # keeps 2⁻²⁴, so it fits the f32 budget, and 1×TF32 (2⁻¹¹) does not.
 REL_BUDGET = 1e-5
-
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, fp32 operations/s
-# on the CUDA cores, TF32 tensor-core FLOP/s.
-PEAK_BYTES = 3.35e12
-PEAK_FP32 = 67e12
-PEAK_TF32 = 495e12
-# fp32 operations per (entry, pixel) pair on the CUDA cores, counted from
-# csrc/mxu_probe.cu (each add, multiply, compare, select and min 1; expf
-# 4, exp2f 2, log1pf 8, a division 4):
-#   power 11 (dx, dy, 6 multiplies, 3 adds; pow_mxu at HIGHEST the same:
-#   6 multiplies, 5 adds); α 10 (expf, o·g, 2 compares and their and, the
-#   min, the select; exp2 9: one multiply and exp2f); static T 9 (1 − α,
-#   129 multiplies per 32 rows, the alive compare and select, 2
-#   multiplies for w); log T 23 at HIGHEST (−α and log1pf 9, the running
-#   add, expf, 1 − α, max, division, compare, select, 2 multiplies) and 22
-#   at HIGH; the 5-row accumulation 10; acc_tn and dfeat_nt at HIGHEST 16
-#   (8 products summed) in its place. At HIGH the operand that varies per
-#   pair (w, or log1p(−α)) is split into two TF32 parts, 3 operations.
-_POWER, _ALPHA, _T, _ACC = 11, 10, 9, 10
-OPS_PER_PAIR = {
-    ("empty", None): 0,
-    ("base", None): _POWER + _ALPHA + _T + _ACC,
-    ("exp2", None): _POWER + _ALPHA - 1 + _T + _ACC,
-    ("pow_mxu", "HIGHEST"): _POWER + _ALPHA + _T + _ACC,
-    ("pow_mxu", "HIGH"): _ALPHA + _T + _ACC,
-    ("scan_mxu", "HIGHEST"): _POWER + _ALPHA + 23 + _ACC,
-    ("scan_mxu", "HIGH"): _POWER + _ALPHA + 22 + 3 + _ACC,
-    ("acc_tn", "HIGHEST"): _POWER + _ALPHA + _T + 16,
-    ("acc_tn", "HIGH"): _POWER + _ALPHA + _T + 3,
-    ("dfeat_nt", "HIGHEST"): _POWER + _ALPHA + _T + 16,
-    ("dfeat_nt", "HIGH"): _POWER + _ALPHA + _T + 3,
-}
-# Tensor-core FLOPs per pair at HIGH, 3 products each: the power's 6
-# nonzero monomials; the 32-wide diagonal blocks of the triangle; 8
-# feature rows of the TN product; 8 df columns (the (df[:8] @ basis) term
-# adds 1/16 of a FLOP per pair and is left out).
-TC_FLOPS_PER_PAIR = {"pow_mxu": 3 * 2 * 6, "scan_mxu": 3 * 2 * 32,
-                     "acc_tn": 3 * 2 * 8, "dfeat_nt": 3 * 2 * 8}
-
 
 def make_payload(n_blocks: int, dev) -> torch.Tensor:
     """The JAX script's draw (tools/exp_mxu.py:47-49)."""
@@ -116,26 +78,6 @@ def held_rows(name: str, got: torch.Tensor, want: torch.Tensor, rel: float,
         raise RuntimeError(f"{name}: row {i} max|Δ| {float(err[i])} > "
                            f"{float(allow[i])} ({rel}·max|want|)")
     return float(err.max()), float(allow.max())
-
-
-def bound(variant: str, precision, n_blocks: int) -> dict:
-    """Least time of a run on the H100: its bytes (payload read once, the
-    (8, 256) output written once), its fp32 operations on the CUDA cores
-    and, at HIGH, its tensor-core FLOPs, each at the card's peak; the
-    largest of the three."""
-    pairs = n_blocks * BLOCK * NPIX
-    nbytes = n_blocks * BLOCK * NFEAT * 4 + 8 * NPIX * 4
-    if variant == "dfeat_nt":
-        nbytes += NDF * NPIX * 4
-    times = {"bytes": nbytes / PEAK_BYTES * 1e3,
-             "operations": pairs * OPS_PER_PAIR[variant, precision]
-             / PEAK_FP32 * 1e3,
-             "tensor cores": (pairs * TC_FLOPS_PER_PAIR[variant]
-                              / PEAK_TF32 * 1e3 if precision == "HIGH"
-                              else 0.0)}
-    by = max(times, key=times.get)
-    return {"bound_ms": times[by], "bound_by": by,
-            "tc_ms": times["tensor cores"]}
 
 
 def parse_args(argv):
@@ -176,7 +118,7 @@ def main(argv=None) -> list:
                "ms": ms, "launches": launches,
                "plain_ms": time_ms(plain, dev, min(reps, 3)),
                "max_abs_err": err, "budget": budget,
-               **bound(variant, precision, B)}
+               **work.probe_bound(variant, precision, B)}
         records.append(rec)
         print(f"{variant:12s} ({precision}): {rec['ms']:8.4f} ms ({clock}); "
               f"plain {rec['plain_ms']:.4f} ms; max|Δ| {err:.3e} (budget "

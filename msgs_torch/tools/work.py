@@ -1,8 +1,9 @@
 """What a compositor kernel must do on a stream: one table of the fp32
 operations per (entry, pixel) pair for the whole compositor family (kernels
-3, 4 and 4b, and the ablation kernels of csrc/fwd_ablate.cu and
-csrc/bwd_ablate.cu), the pairs a stream needs, and the H100's peaks.
-chip_smoke.py and the ablation tools (exp_fwd_ablate, exp_bwd2, exp_bwd3)
+3, 4 and 4b, the ablation kernels of csrc/fwd_ablate.cu and
+csrc/bwd_ablate.cu, and the pair-math probe csrc/mxu_probe.cu), the pairs a
+stream needs, the H100's peaks, and the issue floor a kernel's SASS sets.
+chip_smoke.py and the tools (exp_fwd_ablate, exp_bwd2, exp_bwd3, exp_mxu)
 take their bounds from here.
 
 Counting: each add, multiply, min, max, compare, and the and of two
@@ -18,10 +19,28 @@ from __future__ import annotations
 import torch
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, fp32 (non-tensor-
-# core) operations/s, bf16 tensor-core FLOP/s.
+# core) operations/s, bf16 and TF32 tensor-core FLOP/s.
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
+# The issue floor: one warp instruction per scheduler and cycle, 4
+# schedulers on each of the H100 SXM's 132 SMs, at the SM clock nvidia-smi
+# gives as clocks.max.sm on the card (1,980 MHz; the clock under load is
+# not measured).
+SMS, SCHEDULERS, WARP = 132, 4, 32
+MAX_SM_CLOCK_HZ = 1.98e9
+
+
+def issue_floor_ms(instructions_per_pair: float, pairs: int,
+                   clock_hz: float = MAX_SM_CLOCK_HZ) -> float:
+    """The least time a kernel that issues `instructions_per_pair` SASS
+    instructions per (entry, pixel) pair (a thread's, so 1/32 of a warp
+    instruction) takes for `pairs` pairs: pairs × instructions / (SMs ×
+    schedulers × 32 lanes × clock). It stands beside a bound and replaces
+    none."""
+    return (pairs * instructions_per_pair
+            / (SMS * SCHEDULERS * WARP * clock_hz) * 1e3)
 
 # What a backward recomputes, as composite_fwd.cu does it: 2 pixel
 # offsets, 9 for the power, 4 for expf, 1 for o·g, 5 for the mask's two
@@ -184,3 +203,70 @@ def saturation_work(stream, width, height) -> tuple:
                                 oy[tid], t_in, done)
         t_run[tid], done_run[tid] = comp._advance(sub, t_in, done)
     return int(n_tile), int(n_strip)
+
+
+# The pair-math probe, csrc/mxu_probe.cu (kernel 5), per (entry, pixel)
+# pair, counted from that source as above and further: exp2f 2, log1pf 8,
+# a division 4, a negation 1; a term the kernel makes once for the two
+# pixels of a thread (they share x) counts one half.
+#   power 9: dx, cxx·dx, ·dx and cxy·dx once for two pixels (2), dy,
+#     cyy·dy, ·dy, the sum, ·(−0.5), ·dy and the subtraction (7); pow_mxu
+#     at HIGHEST 9.5 (6 products and 5 adds, the x², x and 1 terms' products
+#     shared), at HIGH none (the tensor cores).
+#   α 10: expf, o·g, 2 compares and their and, the min, the select; exp2 9
+#     (a multiply and exp2f).
+#   static T 9: 1 − α, ~4 for the 5-round product (129 products per 32
+#     rows), w = (α·T_excl)·[T ≥ 1e-4]: 2 multiplies, a compare, a select.
+#   log T at HIGHEST 23: −α and log1pf 9, the running add, expf, 1 − α, the
+#     max, the division, compare, select, 2 multiplies; at HIGH 22 and the
+#     split of log1p(−α) into two TF32 parts, 3.
+#   the 5-row accumulation 10; acc_tn and dfeat_nt at HIGHEST 16 (8
+#     products summed: acc_tn's 8 feature rows in all four segments,
+#     dfeat_nt's 8 df columns), at HIGH the split of w, 3.
+# Tensor-core FLOPs per pair at HIGH, products that are issued: pow_mxu 2
+# (the basis is exact in TF32, so its small part's product is left out) ×
+# 2 × 6 nonzero monomials; scan_mxu 2 (the triangle is exact) × 2 × 24 (a
+# 32-row segment's 16×16 zero block is left out: K = 16 for rows 0-15, 32
+# for 16-31); acc_tn and dfeat_nt 3 × 2 × 8. (df[:8] @ basis) adds 1/16 of
+# a FLOP a pair and is left out.
+_P_POWER, _P_POWER_HORNER, _P_ALPHA, _P_T, _P_ACC = 9, 9.5, 10, 9, 10
+PROBE_OPS = {
+    ("empty", None): 0,
+    ("base", None): _P_POWER + _P_ALPHA + _P_T + _P_ACC,             # 38
+    ("exp2", None): _P_POWER + _P_ALPHA - 1 + _P_T + _P_ACC,         # 37
+    ("pow_mxu", "HIGHEST"): _P_POWER_HORNER + _P_ALPHA + _P_T + _P_ACC,
+    ("pow_mxu", "HIGH"): _P_ALPHA + _P_T + _P_ACC,                   # 29
+    ("scan_mxu", "HIGHEST"): _P_POWER + _P_ALPHA + 23 + _P_ACC,      # 52
+    ("scan_mxu", "HIGH"): _P_POWER + _P_ALPHA + 22 + 3 + _P_ACC,     # 54
+    ("acc_tn", "HIGHEST"): _P_POWER + _P_ALPHA + _P_T + 16,          # 44
+    ("acc_tn", "HIGH"): _P_POWER + _P_ALPHA + _P_T + 3,              # 31
+    ("dfeat_nt", "HIGHEST"): _P_POWER + _P_ALPHA + _P_T + 16,        # 44
+    ("dfeat_nt", "HIGH"): _P_POWER + _P_ALPHA + _P_T + 3,            # 31
+}
+PROBE_TC_FLOPS = {"pow_mxu": 2 * 2 * 6, "scan_mxu": 2 * 2 * 24,
+                  "acc_tn": 3 * 2 * 8, "dfeat_nt": 3 * 2 * 8}
+# Pairs one thread covers in a pass of the probe's segment loop (32 rows ×
+# its 2 pixels): a kernel's static SASS instructions over this are its
+# instructions per pair (the once-a-block and once-a-CTA code included).
+PROBE_PAIRS_PER_PASS = 32 * 2
+
+
+def probe_bound(variant: str, precision, n_blocks: int) -> dict:
+    """Least time of a probe run on the H100: its bytes (payload read once,
+    the (8, 256) output written once, dfeat_nt's g_rows read once), its
+    fp32 operations on the CUDA cores and, at HIGH, its tensor-core FLOPs,
+    each at the card's peak; the largest of the three. tc_ms is the
+    tensor-core work alone."""
+    from msgs_torch.kernels.mxu_probe import BLOCK, NDF, NFEAT, NOUT, NPIX
+    pairs = n_blocks * BLOCK * NPIX
+    nbytes = n_blocks * BLOCK * NFEAT * 4 + NOUT * NPIX * 4
+    if variant == "dfeat_nt":
+        nbytes += NDF * NPIX * 4
+    times = {"bytes": nbytes / PEAK_BYTES * 1e3,
+             "operations": pairs * PROBE_OPS[variant, precision]
+             / PEAK_FP32 * 1e3,
+             "tensor cores": (pairs * PROBE_TC_FLOPS[variant] / PEAK_TF32
+                              * 1e3 if precision == "HIGH" else 0.0)}
+    by = max(times, key=times.get)
+    return {"bound_ms": times[by], "bound_by": by,
+            "tc_ms": times["tensor cores"], "pairs": pairs}

@@ -15,8 +15,10 @@ from msgs_torch.kernels import _build
 from msgs_torch.kernels import ablate
 from msgs_torch.kernels import composite as comp
 from msgs_torch.kernels import scan
-from msgs_torch.kernels.gather import gather_rows, gather_rows_plain
-from msgs_torch.kernels.mxu_probe import (NDF, NPIX, pair_block_probe,
+from msgs_torch.kernels.gather import (GATHER_INSTANCES, gather_rows,
+                                       gather_rows_plain)
+from msgs_torch.kernels.mxu_probe import (NDF, NPIX, PROBE_INSTANCES,
+                                          instance_index, pair_block_probe,
                                           pair_block_probe_plain)
 from msgs_torch.tools import exp_bwd2, exp_fwd_ablate
 from msgs_torch.tools.exp_mxu import REL_BUDGET, RUNS, held_rows, \
@@ -239,7 +241,9 @@ def test_gather_kernel_matches_plain(dev, F, table_layout, out_layout):
     before = _build.launch_counts["gather_rows"]
     got = gather_rows(table, gid, table_layout, out_layout, block)
     torch.cuda.synchronize()
-    assert _build.launch_counts["gather_rows"] == before + 1
+    # A feature table is transposed first: two launches.
+    assert _build.launch_counts["gather_rows"] == before + (
+        2 if table_layout == "features" else 1)
     want = gather_rows_plain(table, gid, table_layout, out_layout, block)
     assert got.shape == want.shape
     # Exact: every bit, not only every value.
@@ -264,6 +268,59 @@ def test_gather_kernel_refuses_unaligned_width(dev):
         gather_rows(table, gid)
 
 
+# Edges of the redesigned gather: one entry; E not a multiple of a warp's 64
+# entries or a thread's 4; rows not a multiple of the transpose's 128-row
+# tile; F = 4 (the any-width instances); blocks of 4 and not of 4.
+@pytest.mark.parametrize("F,rows,E,table_layout,out_layout,block", [
+    (16, 1001, 1, "rows", "entry", None),
+    (16, 1001, 1, "features", "feature", None),
+    (12, 1001, 1, "features", "blocked", 1),
+    (16, 1001, 65, "rows", "entry", None),
+    (12, 1001, 4 * 64 + 3, "features", "entry", None),
+    (16, 1001, 4 * 64 + 3, "rows", "feature", None),
+    (12, 257, 1000, "features", "feature", None),
+    (16, 129, 999, "features", "blocked", 111),
+    (4, 300, 1999, "rows", "entry", None),
+    (4, 300, 1999, "features", "feature", None),
+    (4, 300, 2000, "features", "blocked", 8),
+    (8, 300, 2000, "rows", "blocked", 500),
+    (12, 1001, 2000, "rows", "blocked", 250),
+    (16, 1001, 4096, "features", "blocked", 2048)])
+def test_gather_kernel_edges(dev, F, rows, E, table_layout, out_layout,
+                             block):
+    table, gid = _gather_inputs(dev, F, table_layout, rows=rows, E=E,
+                                seed=E)
+    got = gather_rows(table, gid, table_layout, out_layout, block)
+    torch.cuda.synchronize()
+    want = gather_rows_plain(table, gid, table_layout, out_layout, block)
+    assert got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("out_layout", ["entry", "feature", "blocked"])
+def test_gather_kernel_clamps_ids_of_feature_tables(dev, out_layout):
+    """The transposed feature table clamps as the row table does, in every
+    output layout (rows = 130 is no multiple of the transpose's tile)."""
+    table, gid = _gather_inputs(dev, 12, "features", rows=130, E=1000)
+    gid[::5] = -7
+    gid[2::5] = 130 + 4
+    block = 8 if out_layout == "blocked" else None
+    got = gather_rows(table, gid, "features", out_layout, block)
+    want = gather_rows_plain(table, gid.clamp(0, 129), "features",
+                             out_layout, block)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("i", range(len(GATHER_INSTANCES)))
+def test_gather_builds_fit(dev, i):
+    """No stack frame and at least 4 CTAs of 256 threads an SM for every
+    instance (the grid is sized from the CTAs an SM holds)."""
+    info = _build.kernel_info("msgs_gather_rows_info", i)
+    assert info["stack_bytes"] == 0, (GATHER_INSTANCES[i], info)
+    assert info["ctas_per_sm"] >= 4, (GATHER_INSTANCES[i], info)
+
+
 # The JAX script's 11 distinct (variant, precision) pairs.
 _MXU_RUNS = sorted(set(RUNS), key=RUNS.index)
 
@@ -286,9 +343,8 @@ def test_mxu_probe_kernel_matches_plain(dev, variant, precision, per_block):
     got = pair_block_probe(pay, variant, precision, per_block=per_block,
                            **kw)
     torch.cuda.synchronize()
-    # The probe kernel, and for the summed output the sum of its partials.
-    assert _build.launch_counts["mxu_probe"] == before + (1 if per_block
-                                                          else 2)
+    # One launch, the summed output's sum of partials included.
+    assert _build.launch_counts["mxu_probe"] == before + 1
     want = pair_block_probe_plain(pay, variant, precision,
                                   per_block=per_block, **kw)
     dim = (2 if variant == "dfeat_nt" else 1) if per_block else 0
@@ -307,6 +363,47 @@ def test_mxu_probe_kernel_ragged_grid(dev, variant, precision):
     held_rows(variant, got, want, REL_BUDGET, 0)
     if variant == "dfeat_nt":
         assert not got.any()
+
+
+@pytest.mark.parametrize("variant,precision", [
+    r for r in _MXU_RUNS if r[1] != "HIGH"])
+def test_mxu_probe_fp32_runs_are_bit_exact_per_block(dev, variant,
+                                                     precision):
+    """The f32 runs sum in the plain version's order under -fmad=false:
+    every per-block term (dfeat_nt: its df on a nonzero g_rows) equals it
+    to the bit."""
+    pay = make_payload(96, dev)
+    kw = {"g_rows": _g_rows(dev)} if variant == "dfeat_nt" else {}
+    got = pair_block_probe(pay, variant, precision, per_block=True, **kw)
+    torch.cuda.synchronize()
+    want = pair_block_probe_plain(pay, variant, precision, per_block=True,
+                                  **kw)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("B", [1, 31, 33, 1000, 5000])
+def test_mxu_probe_summed_grid_and_groups(dev, B):
+    """Grids of one CTA, of fewer CTAs than blocks, and of more than one
+    group of 32 CTAs (the second ticket level): the summed output within
+    budget of the plain version, and bit-identical over launches (the
+    tickets are left at 0 by each launch)."""
+    pay = make_payload(B, dev)
+    got = pair_block_probe(pay, "base")
+    want = pair_block_probe_plain(pay, "base")
+    torch.cuda.synchronize()
+    held_rows("base", got, want, REL_BUDGET, 0)
+    for _ in range(3):
+        again = pair_block_probe(pay, "base")
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+@pytest.mark.parametrize("i", range(len(PROBE_INSTANCES)))
+def test_mxu_probe_builds_fit(dev, i):
+    """Every instance builds with no stack frame and fits on an SM."""
+    idx = instance_index(*PROBE_INSTANCES[i])
+    info = _build.kernel_info("msgs_mxu_probe_info", idx)
+    assert info["stack_bytes"] == 0, (PROBE_INSTANCES[i], info)
+    assert info["ctas_per_sm"] >= 1, (PROBE_INSTANCES[i], info)
 
 
 def test_mxu_probe_kernel_is_deterministic(dev):
