@@ -137,6 +137,33 @@ Builds the CUDA kernels from msgs_torch/csrc (into build/msgs_torch/), then:
      bit, on the four check streams of [ablate]. Each run prints as in
      [ablate].
 
+ 13. rowtight: the bench scene (colors_precomp, 1920×1080, entry_cap
+     1,417,216) preprocessed once on the card, then binned with
+     row_tight=True on the card and, from the same output copied to the
+     CPU, by the plain path: every integer field equal, gauss_id equal per
+     tile as a multiset; num_entries within 0.1% of JAX-on-CPU's 1,156,045,
+     below the banded path's, no overflow. The scene rendered both ways on
+     the card: image within 1e-5 and depth within 1e-4 of the banded
+     render at every pixel of a tile whose entries share no depth key
+     between two Gaussians (the tiles excused are counted). Counters are
+     zeroed just before and read just after: both scans and the forward
+     compositor ran, no backward. bin_gaussians' median host ms, row-tight
+     and bands in turns; kernel 1 held exact against its plain version on
+     row-tight's own 5 × 1,417,216 delta planes and timed there as in
+     item 3.
+ 14. eval: inside the trainer's directory (item 8), before it is removed,
+     msgs_torch.apps.render (--anti_alias, the model's filters), then
+     metrics, then eval_scales at ×1 2 4 8 on the iteration-1100 PLY and
+     with --checkpoint on chkpnt600.npz, each through its main(argv) on
+     the card; counters are zeroed just before and read just after: both
+     scans and the forward compositor ran, no backward. Every number they
+     write is finite; metrics' ×1 test PSNR (8-bit PNGs) is within
+     PNG_PSNR_DB of the trainer's final test_s1; eval_scales' median ms per
+     render is printed per scale; LPIPS with seeded synthetic weights
+     between a 512² test render and its ground truth matches the same call
+     on the CPU within rtol 2e-4 (tests/test_lpips.py's tolerance), and is
+     timed (CUDA events).
+
 Any failed check raises, and the script exits non-zero without its result
 lines. On success the second-to-last lines are the nvidia-smi line and one
 JSON object describing every kernel; the last line is the device record.
@@ -174,7 +201,7 @@ ENTRY_CAP = 1_417_216
 REF_ENTRIES = 1_287_253       # BENCH_r05.json detail.n_entries (TPU run)
 # Idle host time at both ends of trace_window's padded traces.
 TRACE_PAD_S = 0.02
-# chip_smoke.py's own argument for fresh_device_ms's child process.
+# chip_smoke.py's own argument for fresh_child's child process.
 FRESH_FLAG = "--trainer-device-ms"
 STEPS = 20                    # full-width train steps
 # The bf16 kernel vs its plain version, per column, relative to the
@@ -380,7 +407,7 @@ def device_ms(fn, kernel: str, reps: int = 5, tries: int = 3):
     them: one that kept none of `kernel`'s is taken again, up to `tries`
     traces. Every trace taken is returned, by kernel; (None, 0) if none
     kept an event of `kernel`. Late in a long process traces lose events
-    (PERF.md §7; trace_window, fresh_device_ms)."""
+    (PERF.md §7; trace_window, fresh_child)."""
     from msgs_torch.tools import trace_ms
     traces = []
     for _ in range(tries):
@@ -443,18 +470,31 @@ def ms_text(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f}"
 
 
-def scan_times(x, reps: int = 20) -> dict:
-    """Kernel 1 or 2 on x: CUDA-event, host-clock and device times, its
-    launches per call counted by the profiler, torch.cumsum's times, and
-    the bytes bound."""
+def scan_traces(x) -> dict:
+    """Profiler traces of 10 calls of kernel 1 or 2 on x (device_ms) and
+    of 10 of torch.cumsum's (trace_ms): {"kernel": (ms, events, traces),
+    "library": {kernel: {"ms", "events"}}}."""
     from msgs_torch.kernels import scan
     from msgs_torch.tools import trace_ms
+    return dict(kernel=device_ms(lambda: scan.cumsum_rows(x),
+                                 "scan_lookback", 10),
+                library=trace_ms(
+                    lambda: torch.cumsum(x, dim=-1, dtype=x.dtype), 10))
+
+
+def scan_times(x, reps: int = 20, traced=None) -> dict:
+    """Kernel 1 or 2 on x: CUDA-event, host-clock and device times, its
+    launches per call counted by the profiler, torch.cumsum's times, and
+    the bytes bound. traced: scan_traces(x) as taken elsewhere (in a
+    fresh process); by default they are taken here."""
+    from msgs_torch.kernels import scan
     R, E = x.shape
     call = lambda: scan.cumsum_rows(x)
     lib = lambda: torch.cumsum(x, dim=-1, dtype=x.dtype)
     ms, lib_ms = paired_ms(call, lib, 2 * reps + 10)
     plain = median_ms(lambda: scan.cumsum_rows_plain(x), reps)
-    dev_ms, events, traces = device_ms(call, "scan_lookback", 10)
+    traced = traced or scan_traces(x)
+    dev_ms, events, traces = traced["kernel"]
     # One launch per call and no memset: every trace holds scan_lookback
     # only, at most once per call (a trace may lose events), and one of
     # them holds it.
@@ -463,7 +503,7 @@ def scan_times(x, reps: int = 20) -> dict:
         and tr.get("scan_lookback", {"events": 0})["events"] <= 10
         for tr in traces),
           f"scan {R}x{E}: the profiler saw {traces}, 10 calls a trace")
-    lib_tr = trace_ms(lib, 10)
+    lib_tr = traced["library"]
     nbytes = 2 * R * E * 4
     bound = max(nbytes / PEAK_BYTES, R * E / PEAK_FP32) * 1e3
     return dict(ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=bound,
@@ -801,29 +841,41 @@ def trainer_kernels(args) -> list:
             ("composite_bwd", lambda: comp._composite_bwd_cuda(*args))]
 
 
-def fresh_device_ms(args) -> dict:
-    """trainer_kernels' device times ({name: {"ms", "events"} or None})
-    from traces taken in a fresh process (chip_smoke.py FRESH_FLAG FILE),
-    on the same inputs saved to FILE. Its launches do not count."""
+def fresh_child(kind: str, args: list):
+    """fresh_device_child's result for `kind` on args, from a fresh process
+    (chip_smoke.py FRESH_FLAG FILE) given the same inputs saved to FILE:
+    late in a long process the profiler loses events (PERF.md §7). The
+    child's launches do not count."""
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "stream.pt")
-        torch.save([a.cpu() if isinstance(a, torch.Tensor) else a
-                    for a in args], path)
+        path = os.path.join(tmp, "inputs.pt")
+        torch.save([kind] + [a.cpu() if isinstance(a, torch.Tensor) else a
+                             for a in args], path)
         r = subprocess.run([sys.executable, os.path.abspath(__file__),
                             FRESH_FLAG, path], capture_output=True,
                            text=True, timeout=600)
-    check(r.returncode == 0, f"fresh_device_ms: rc {r.returncode}: "
+    check(r.returncode == 0, f"fresh_child {kind}: rc {r.returncode}: "
           f"{r.stderr[-2000:]}")
     return json.loads(r.stdout.strip().splitlines()[-1])
 
 
+def fresh_device_ms(args) -> dict:
+    """trainer_kernels' device times ({name: {"ms", "events"} or None})
+    on one of the trainer's kept streams, traced in a fresh process."""
+    return fresh_child("stream", args)
+
+
 def fresh_device_child(path) -> int:
-    """fresh_device_ms's child: one trace of 5 calls of each kernel."""
+    """fresh_child's child. "stream": one trace of 5 calls of each of
+    trainer_kernels; "scans": scan_traces of each tensor given."""
     from msgs_torch.tools import trace_ms
-    args = [a.cuda() if isinstance(a, torch.Tensor) else a
-            for a in torch.load(path)]
-    print(json.dumps({name: trace_ms(fn, 5).get(name + "_kernel")
-                      for name, fn in trainer_kernels(args)}))
+    kind, *args = torch.load(path)
+    args = [a.cuda() if isinstance(a, torch.Tensor) else a for a in args]
+    if kind == "stream":
+        out = {name: trace_ms(fn, 5).get(name + "_kernel")
+               for name, fn in trainer_kernels(args)}
+    else:
+        out = [scan_traces(x) for x in args]
+    print(json.dumps(out))
     return 0
 
 
@@ -873,22 +925,25 @@ def trainer_stream_times(args) -> dict:
 
 def trainer_scan_times(shapes) -> dict:
     """Kernels 1 and 2 at each shape the trainer scanned, {(dtype, R, E):
-    calls}: exact against the plain version, then timed as in [kernels].
+    calls}: exact against the plain version, then timed as in [kernels],
+    with the profiler's traces taken in one fresh process (fresh_child).
     Returns {kernel: [record per shape, most calls first]}."""
     from msgs_torch.kernels import scan
     g = torch.Generator().manual_seed(9)
     out = {"scan_f32": [], "scan_i32": []}
-    for (dtype, R, E), calls in sorted(shapes.items(),
-                                       key=lambda kv: -kv[1]):
+    order = sorted(shapes.items(), key=lambda kv: -kv[1])
+    xs = [torch.randint(-6, 9, (R, E), generator=g).to(dtype).cuda()
+          for (dtype, R, E), _ in order]
+    traced = fresh_child("scans", xs)
+    for ((dtype, R, E), calls), x, tr in zip(order, xs, traced):
         name = "scan_f32" if dtype == torch.float32 else "scan_i32"
-        x = torch.randint(-6, 9, (R, E), generator=g).to(dtype).cuda()
         check(torch.equal(scan.cumsum_rows(x), scan.cumsum_rows_plain(x)),
               f"{name} differs from its plain version at the trainer's "
               f"{R}x{E}")
-        rec = dict(scan_times(x), calls=calls)
+        rec = dict(scan_times(x, traced=tr), calls=calls)
         out[name].append(rec)
-        print(f"[trainer] {scan_line(name, rec)}; {calls} calls in the run",
-              flush=True)
+        print(f"[trainer] {scan_line(name, rec)} (traced in a fresh "
+              f"process); {calls} calls in the run", flush=True)
     for name, recs in out.items():
         cost = sum(r["calls"] * (r["ms"] - r["bound_ms"]) for r in recs)
         dev_cost = sum(r["calls"] * (r["device_ms"] - r["bound_ms"])
@@ -1089,6 +1144,148 @@ def phase_main_path(dev):
     return counts, renders, times, st, cfg
 
 
+ROWTIGHT_ENTRIES = 1_156_045  # row-tight bench scene, JAX on the CPU
+
+
+def tile_pairs(b, n: int) -> torch.Tensor:
+    """Sorted (tile, gauss_id) keys of a Binned's valid sub-blocks, on the
+    CPU: equal for two streams iff every tile holds the same multiset."""
+    sv = b.sub_valid.cpu().bool()
+    tile = b.sub_tile.cpu().long()[sv].repeat_interleave(32)
+    gid = b.gauss_id.cpu().long().view(-1, 32)[sv].reshape(-1)
+    return torch.sort(tile * (n + 1) + gid).values
+
+
+def tied_tiles(binned, dq, n: int) -> torch.Tensor:
+    """Tiles in which two distinct Gaussians of any of the given streams
+    share a depth quantum (their order is the sort's to choose)."""
+    keys = torch.unique(torch.cat([tile_pairs(b, n) for b in binned]))
+    tile, gid = keys // (n + 1), keys % (n + 1)
+    real = gid < n
+    tile, gid = tile[real], gid[real]
+    td = tile * (1 << 24) + dq.cpu().long()[gid]
+    u, c = torch.unique(td, return_counts=True)
+    return torch.unique(u[c > 1] >> 24)
+
+
+def phase_rowtight(dev, smi_line):
+    """Row-tight binning (bin_gaussians(row_tight=True)) on the bench
+    scene: the card against the plain path on the same preprocess output,
+    the entry count against JAX's, renders against the banded path's, its
+    launches and times, and kernel 1 on its delta planes."""
+    from msgs_torch.core.camera import make_camera
+    from msgs_torch.kernels import _build, binning, scan
+    from msgs_torch.kernels.preprocess import PreprocessOut, preprocess
+    from msgs_torch.kernels.rasterize import RasterSettings, rasterize
+    means, scales, quats, opac, cols = bench_scene(0)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    cam = make_camera(np.eye(3), np.zeros(3), 1.2, 0.8, W, H, device=dev)
+    args = (t(means), t(opac))
+    kw = dict(colors_precomp=t(cols), scales=t(scales), quats=t(quats))
+    planes = []
+    launch_scan = scan._cumsum_cuda
+
+    def keep_planes(x):
+        if x.dtype == torch.float32 and tuple(x.shape) == (5, ENTRY_CAP):
+            planes.append(x)
+        return launch_scan(x)
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    scan._cumsum_cuda = keep_planes
+    try:
+        with torch.no_grad():
+            pre = preprocess(cam, *args, **kw)
+            tight = binning.bin_gaussians(pre, W, H, ENTRY_CAP,
+                                          row_tight=True)
+            bands = binning.bin_gaussians(pre, W, H, ENTRY_CAP)
+            settings = {m: RasterSettings(entry_cap=ENTRY_CAP, row_tight=m)
+                        for m in (True, None)}
+            outs = {m: rasterize(cam, *args, settings=s, **kw)
+                    for m, s in settings.items()}
+        torch.cuda.synchronize()
+    finally:
+        scan._cumsum_cuda = launch_scan
+    counts = dict(_build.launch_counts)
+    print(f"[rowtight] launches (preprocess, both binnings, both renders): "
+          f"{counts}", flush=True)
+    for k in ("scan_f32", "scan_i32", "composite_fwd"):
+        check(counts[k] > 0, f"rowtight: kernel {k} never launched")
+    check(counts["composite_bwd"] == 0 and counts["composite_bwd_bf16"] == 0,
+          "rowtight: a backward ran")
+
+    plain = binning.bin_gaussians(PreprocessOut(*(x.cpu() for x in pre)),
+                                  W, H, ENTRY_CAP, row_tight=True)
+    for f in ("sub_tile", "sub_valid", "tile_nonempty", "tile_last_sub",
+              "num_entries", "overflow", "gid_starts"):
+        check(torch.equal(getattr(tight, f).cpu(), getattr(plain, f)),
+              f"rowtight: {f} differs between the card and the plain path")
+    check(torch.equal(tile_pairs(tight, N), tile_pairs(plain, N)),
+          "rowtight: gauss_id per tile differs between the card and the "
+          "plain path")
+    n_t, n_b = int(tight.num_entries), int(bands.num_entries)
+    rel = abs(n_t - ROWTIGHT_ENTRIES) / ROWTIGHT_ENTRIES
+    print(f"[rowtight] bench scene num_entries {n_t} (JAX on the CPU "
+          f"{ROWTIGHT_ENTRIES}, rel {rel:.2e}; bands {n_b}, "
+          f"{1 - n_t / n_b:.2%} fewer), overflow {int(tight.overflow)}; "
+          f"every integer field equals the plain path's, gauss_id per tile "
+          f"as a multiset", flush=True)
+    check(rel <= 1e-3, "rowtight: num_entries off JAX's by > 0.1%")
+    check(n_t < n_b, "rowtight: not fewer entries than bands")
+    check(int(tight.overflow) == 0, "rowtight: overflow")
+
+    # Renders: equal except at tiles whose entries tie on a depth key.
+    dq = binning._depth_quanta(pre, min(binning._depth_bits(
+        ((W + 15) // 16) * ((H + 15) // 16)), 23))
+    tied = tied_tiles((tight, bands), dq, N)
+    tx = (W + 15) // 16
+    ys = torch.arange(H, device=dev)[:, None] // 16
+    xs = torch.arange(W, device=dev)[None, :] // 16
+    excused = torch.isin(ys * tx + xs, tied.to(dev))
+    errs = {}
+    for f, tol in (("image", 1e-5), ("depth", 1e-4)):
+        d = (getattr(outs[True], f) - getattr(outs[None], f)).abs()
+        if d.dim() == 3:
+            d = d.amax(-1)
+        errs[f] = torch.where(excused, 0.0, d).max().item()
+        check(errs[f] <= tol, f"rowtight: {f} max|Δ| {errs[f]} > {tol} "
+              f"against the bands render")
+    print(f"[rowtight] render vs bands: image max|Δ| {errs['image']:.3e}, "
+          f"depth {errs['depth']:.3e} outside the {int(tied.numel())} of "
+          f"{tx * ((H + 15) // 16)} tiles whose entries tie on a depth key "
+          f"(excused)", flush=True)
+
+    # bin_gaussians times, in turns (row-tight, bands, bands, row-tight).
+    with torch.no_grad():
+        fn = {m: (lambda m=m: binning.bin_gaussians(pre, W, H, ENTRY_CAP,
+                                                    row_tight=m))
+              for m in (True, None)}
+        times = {True: [], None: []}
+        for m in (True, None, None, True):
+            times[m].append(host_ms(fn[m], 10))
+    print(f"[rowtight] bin_gaussians at {W}x{H}: row-tight "
+          f"{statistics.median(times[True]):.3f} ms, bands "
+          f"{statistics.median(times[None]):.3f} ms (median host ms, CUDA-"
+          f"synchronised, 10 calls, in turns: row-tight {times[True]}, "
+          f"bands {times[None]}); {smi_line}", flush=True)
+
+    # Kernel 1 on row-tight's own delta planes (5 x 1,417,216 f32).
+    check(len(planes) >= 1, "rowtight: no 5-plane delta scan captured")
+    x = planes[0]
+    got = scan.cumsum_rows(x)
+    torch.cuda.synchronize()
+    err = (got.double() - scan.cumsum_rows_plain(x).double()).abs().max()
+    check(err.item() == 0, "rowtight: kernel 1 differs from its plain "
+          "version on the delta planes")
+    rec = scan_times(x)
+    print(f"[rowtight] {scan_line('scan_f32 (row-tight delta planes)', rec)}"
+          f", max|Δ| 0 (exact); {smi_line}", flush=True)
+    return counts, dict(rec, max_abs_err=err.item(), num_entries=n_t,
+                        bands_entries=n_b, tied_tiles=int(tied.numel()),
+                        bin_ms=statistics.median(times[True]),
+                        bands_bin_ms=statistics.median(times[None]))
+
+
 def phase_train(dev, st, cfg):
     """STEPS full-width train_step calls of the serving model, perturbed,
     towards a render of the unperturbed model from camera 0."""
@@ -1260,6 +1457,106 @@ def phase_small_reference(dev):
         check(torch.equal(getattr(a, f).cpu(), getattr(b, f)),
               f"small scene {f}: card vs CPU differ")
     print("[small] 88x72 card render matches the CPU plain path", flush=True)
+
+
+EVAL_SCALES = ("1", "2", "4", "8")
+PNG_PSNR_DB = 0.1             # metrics' x1 test PSNR vs the trainer's
+
+
+def lpips_synthetic_weights(seed: int) -> dict:
+    """Seeded weights in the real VGG16 layout, drawn as
+    tests/test_lpips.py:_synthetic_weights draws them (no pretrained
+    weights exist offline)."""
+    from msgs_torch.eval.lpips import _VGG_BLOCKS
+    rng = np.random.default_rng(seed)
+    out, cin, i = {}, 3, 0
+    for ch, n in _VGG_BLOCKS:
+        for _ in range(n):
+            out[f"conv_{i}_w"] = rng.normal(
+                0, 0.08, (3, 3, cin, ch)).astype(np.float32)
+            out[f"conv_{i}_b"] = rng.normal(0, 0.01, (ch,)).astype(
+                np.float32)
+            cin = ch
+            i += 1
+    for j, (ch, _) in enumerate(_VGG_BLOCKS):
+        out[f"lin_{j}_w"] = np.abs(rng.normal(
+            0, 1.0 / ch, (1, 1, ch, 1))).astype(np.float32)
+    return out
+
+
+def phase_eval(dev, model, test_s1_psnr, smi_line):
+    """The offline evaluation apps on the trainer's model, through their
+    main(argv) on the card (see the module docstring, item 14)."""
+    from msgs_torch.apps import eval_scales, metrics, render
+    from msgs_torch.data.image import read_png
+    from msgs_torch.eval.lpips import LPIPS
+    from msgs_torch.kernels import _build
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    render.main(["-m", model, "--anti_alias"])
+    metrics.main(["-m", model])
+    common = ["-m", model, "--anti_alias", "--scales", *EVAL_SCALES]
+    reports = {"ply": eval_scales.main(common),
+               "chkpnt600": eval_scales.main(common + [
+                   "--checkpoint", os.path.join(model, "chkpnt600.npz")])}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_build.launch_counts)
+    print(f"[eval] launches over render, metrics and both eval_scales runs "
+          f"({wall:.1f} s): {counts}", flush=True)
+    for k in ("scan_f32", "scan_i32", "composite_fwd"):
+        check(counts[k] > 0, f"eval: kernel {k} never launched")
+    check(counts["composite_bwd"] == 0 and counts["composite_bwd_bf16"] == 0,
+          "eval: a backward ran")
+
+    it = f"ours_{TRAIN_ITERS}"
+    results = json.load(open(os.path.join(model, "results.json")))
+    per_view = json.load(open(os.path.join(model, "per_view.json")))
+    nums = [v for e in results.values() for v in e.values()]
+    nums += [v for e in per_view.values() for d in e.values()
+             for v in d.values()]
+    nums += [v for r in reports.values() for e in r.values()
+             for v in e.values()]
+    check(all(math.isfinite(v) for v in nums), "eval: a non-finite number")
+    p_png = results[it]["PSNR"]
+    print(f"[eval] metrics: test x1 PSNR {p_png:.4f} from the 8-bit PNGs, "
+          f"the trainer's final test_s1 {test_s1_psnr:.4f} (Δ "
+          f"{p_png - test_s1_psnr:+.4f} dB); SSIM "
+          f"{results[it]['SSIM']:.4f}", flush=True)
+    check(abs(p_png - test_s1_psnr) <= PNG_PSNR_DB,
+          f"eval: metrics' x1 PSNR {p_png} vs the trainer's {test_s1_psnr}")
+    for name, rep in reports.items():
+        print(f"[eval] eval_scales ({name}): " + "; ".join(
+            f"{k} psnr {e['psnr']:.3f} ssim {e['ssim']:.4f} render "
+            f"{e['render_ms']:.3f} ms" for k, e in rep.items())
+              + f" (median host ms per render, synchronised); {smi_line}",
+              flush=True)
+
+    # LPIPS with seeded synthetic weights: the card against the CPU.
+    w = lpips_synthetic_weights(7)
+    sub = os.path.join(model, "test", it)
+    img = read_png(os.path.join(sub, "renders", "00000.png"))[..., :3]
+    gt = read_png(os.path.join(sub, "gt", "00000.png"))[..., :3]
+    img, gt = (torch.as_tensor((a / 255.0).astype(np.float32))
+               for a in (img, gt))
+    lp = LPIPS(w, dev)
+    img_d, gt_d = img.to(dev), gt.to(dev)
+    got = float(lp(img_d, gt_d))
+    want = float(LPIPS(w, "cpu")(img, gt))
+    rel = abs(got - want) / abs(want)
+    ms = median_ms(lambda: lp(img_d, gt_d), 10)
+    print(f"[eval] LPIPS (synthetic weights, seed 7) at "
+          f"{tuple(img.shape[:2])}: card {got:.6f}, CPU {want:.6f} (rel "
+          f"{rel:.2e}); {ms:.3f} ms per call (CUDA events); {smi_line}",
+          flush=True)
+    check(math.isfinite(got) and rel <= 2e-4,
+          f"eval: LPIPS on the card {got} vs the CPU {want}")
+    return counts, dict(wall_s=wall, test_s1_png_psnr=p_png,
+                        lpips_ms=ms, lpips_rel=rel,
+                        render_ms={n: {k: e["render_ms"]
+                                       for k, e in r.items()}
+                                   for n, r in reports.items()})
 
 
 def phase_trainer(dev, smi_line):
@@ -1449,6 +1746,7 @@ def phase_trainer(dev, smi_line):
             "--save_iterations", "-1"])
         check(int(resumed.iteration) == 620,
               f"trainer: resume ended at {int(resumed.iteration)}")
+        eval_counts, eval_rec = phase_eval(dev, model, p1, smi_line)
 
         # One train_step of the final state at each coarse level, as the
         # trainer takes it, for the bf16 backward's inputs there.
@@ -1482,7 +1780,8 @@ def phase_trainer(dev, smi_line):
           f"live {int(g.num_live)} of capacity {cap}; resume from "
           f"chkpnt600 to 620 ran; {smi_line}", flush=True)
     return counts, dict(times, wall_s=wall, busy=share,
-                        median_iteration_ms=statistics.median(steps))
+                        median_iteration_ms=statistics.median(steps)), \
+        eval_counts, eval_rec
 
 
 def phase_tools(dev, st, smi_line):
@@ -2142,6 +2441,7 @@ def main():
     del bench_stream, small_stream
 
     serve_counts, renders, _, st, cfg = phase_main_path(dev)
+    rowtight_counts, rowtight_rec = phase_rowtight(dev, smi_line)
     tools_counts, gather_rec = phase_tools(dev, st, smi_line)
     mxu_counts, mxu_rec = phase_mxu(dev, smi_line)
     ablate_counts, ablate_recs = phase_ablate(dev, small, smi_line)
@@ -2150,7 +2450,8 @@ def main():
     del st
     phase_small_reference(dev)
     phase_train_small(dev)
-    trainer_counts, trainer_times = phase_trainer(dev, smi_line)
+    trainer_counts, trainer_times, eval_counts, eval_rec = phase_trainer(
+        dev, smi_line)
 
     records = []
     meta = {
@@ -2188,14 +2489,16 @@ def main():
                                          ("bwd_ablate",
                                           ablate_recs["bwd_ablate"])]
     kernel_recs += list(bwd2_recs.items())
-    runs = (serve_counts, tools_counts, mxu_counts, ablate_counts,
-            bwd2_counts, train_counts, trainer_counts)
+    runs = (serve_counts, rowtight_counts, tools_counts, mxu_counts,
+            ablate_counts, bwd2_counts, train_counts, trainer_counts,
+            eval_counts)
     for name, rec in kernel_recs:
         src, rep = meta[name]
-        # launches: over the seven main-path runs, each counted from 0
-        # (serving renders, the gather tools, the pair-math probe, the
-        # ablations, the follow-up experiments, train_step calls, the
-        # trainer); then each run's. The follow-up experiments' records
+        # launches: over the nine main-path runs, each counted from 0
+        # (serving renders, row-tight binning, the gather tools, the
+        # pair-math probe, the ablations, the follow-up experiments,
+        # train_step calls, the trainer, the evaluation apps); then each
+        # run's. The follow-up experiments' records
         # share the ablation kernels' counters; [bwd2] gives each record
         # the launches of its own runs.
         records.append({
@@ -2211,6 +2514,10 @@ def main():
             "launches_tools": tools_counts.get(name, 0),
             "launches_ablate": ablate_counts.get(name, 0),
             "launches_bwd2": bwd2_counts.get(name, 0),
+            "launches_rowtight": rowtight_counts.get(name, 0),
+            "launches_eval": eval_counts.get(name, 0),
+            **({"rowtight": rowtight_rec} if name == "scan_f32" else {}),
+            **({"eval": eval_rec} if name == "composite_fwd" else {}),
             **({"trainer_shapes": trainer_times[name]}
                if name in trainer_times else {}),
             **rec.get("extra", {})})

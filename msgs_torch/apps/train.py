@@ -19,9 +19,9 @@ cached on the device per (view, scale).
 Beyond the JAX flags: `--device` (default: the CUDA device). Not ported:
 `--mesh`, `--packet_cap` and `--multihost` (sharded training, ROADMAP.md,
 `msgs/dist/`) raise; the network GUI is not ported, and without
-`--disable_gui` the trainer says so and carries on; LPIPS at the final
-evaluation is skipped (ROADMAP.md, `msgs/eval/lpips_jax.py`), as the JAX
-trainer skips it without weights.
+`--disable_gui` the trainer says so and carries on. The final evaluation
+adds LPIPS when its weight file exists (msgs_torch/eval/lpips.py), as the
+JAX trainer does.
 `--profile_steps A:B` traces iterations [A, B) with torch.profiler into
 <model_path>/profile/; `--detect_anomaly` turns on
 torch.autograd.set_detect_anomaly.
@@ -135,6 +135,10 @@ def training(args, on_iteration=None):
     host_ops)`, when given, is called at the end of every iteration;
     `host_ops` says whether the iteration evaluated, saved or ran a
     structural step."""
+    import faulthandler
+    import signal
+    faulthandler.register(signal.SIGUSR1)   # kill -USR1 <pid> → stack dump
+
     from msgs_torch import resolve_device
     from msgs_torch.apps.config import extract_optim, save_cfg
     from msgs_torch.data.dataset import load_scene
@@ -502,12 +506,14 @@ def run_insert_episode(state, scene, sched, target_lvl, cfg, settings,
 def evaluate_scales(state, scene, sched, cfg, settings, args, bg, iteration):
     """Per-scale evaluation over the test set and 5 fixed train views
     (training_report): mean L1 and PSNR, median and mean render time, and
-    SSIM at the final iteration."""
+    at the final iteration SSIM and, when its weights exist, LPIPS."""
+    from msgs_torch.eval.lpips import lpips_if_available
     from msgs_torch.eval.metrics import l1_loss, psnr, ssim
     from msgs_torch.train import loop as L
 
     dev = bg.device
     final = iteration >= getattr(args, "iterations", 10 ** 9)
+    lpips = lpips_if_available(dev) if final else None
     # The eval scales may differ from the train scales; the appearance
     # level for an arbitrary scale is its log2, rounded.
     eval_scales = getattr(args, "ms_test_scales", None) or sched.scales
@@ -520,7 +526,7 @@ def evaluate_scales(state, scene, sched, cfg, settings, args, bg, iteration):
         for scale in eval_scales:
             lvl = min(max(int(round(math.log2(max(scale, 1)))), 0),
                       sched.reso_lvls - 1)
-            l1s, psnrs, ssims, times = [], [], [], []
+            l1s, psnrs, ssims, lpipss, times = [], [], [], [], []
             # Untimed warm-up.
             L.eval_render(state, views[0].camera(scale), cfg=cfg,
                           settings=settings, reso_lvl=lvl, bg=bg)
@@ -538,12 +544,16 @@ def evaluate_scales(state, scene, sched, cfg, settings, args, bg, iteration):
                 psnrs.append(float(psnr(img, gt)))
                 if final:
                     ssims.append(float(ssim(img, gt)))
+                    if lpips is not None:
+                        lpipss.append(float(lpips(img, gt)))
             entry = {
                 "l1": float(np.mean(l1s)), "psnr": float(np.mean(psnrs)),
                 "render_ms": float(np.median(times) * 1000),
                 "render_ms_mean": float(np.mean(times) * 1000)}
             if ssims:
                 entry["ssim"] = float(np.mean(ssims))
+            if lpipss:
+                entry["lpips"] = float(np.mean(lpipss))
             report[f"{split}_s{scale}"] = entry
             print(f"[eval {iteration}] {split} x{scale}: "
                   f"psnr {np.mean(psnrs):.2f} l1 {np.mean(l1s):.4f} "

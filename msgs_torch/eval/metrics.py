@@ -39,7 +39,14 @@ def _filter2d(img, win):
     k = torch.as_tensor(win, device=img.device)[None, None]
     k = k.repeat(C, 1, 1, 1)                            # depthwise
     x = img.permute(2, 0, 1)[None]                      # (1, C, H, W)
-    out = F.conv2d(x, k, padding=win.shape[0] // 2, groups=C)
+    # On the CPU, torch's own convolution: oneDNN's depthwise kernel
+    # (jit_dw) comes out about one ulp high on average against a float64
+    # convolution, a bias the image mean keeps, which put a 64×64 SSIM
+    # 1.1e-6 off the JAX package's (tests/test_torch_eval_apps.py); the
+    # native path is within 2e-7 of float64 and unbiased. CUDA tensors are
+    # unaffected (cuDNN).
+    with torch.backends.mkldnn.flags(enabled=False, allow_tf32=None):
+        out = F.conv2d(x, k, padding=win.shape[0] // 2, groups=C)
     return out[0].permute(1, 2, 0)
 
 

@@ -19,8 +19,8 @@ Differences in mechanism, not in output:
   - every prefix sum here, including the ones XLA computed, goes through
     `scan.cumsum_rows`, and all integer math stays int32 as in JAX.
 
-The per-row `_bin_gaussians_rowtight` path is not ported yet (ROADMAP.md):
-`bin_gaussians(row_tight=True)` raises.
+All three emission paths of the reference are here: "bands" (the default),
+plain rects (`row_tight=False`) and per-row spans (`row_tight=True`).
 """
 from __future__ import annotations
 
@@ -202,9 +202,7 @@ def bin_gaussians(pre: PreprocessOut, width: int, height: int,
             return _bin_gaussians_banded(pre, width, height, entry_cap)
         return _bin_gaussians_rect(pre, width, height, entry_cap)
     if row_tight:
-        raise NotImplementedError(
-            "msgs_torch: the per-row row-tight binning path is not ported "
-            "yet; use row_tight=None ('bands') or False (rects)")
+        return _bin_gaussians_rowtight(pre, width, height, entry_cap)
     return _bin_gaussians_rect(pre, width, height, entry_cap)
 
 
@@ -477,6 +475,164 @@ def _bin_gaussians_banded(pre: PreprocessOut, width: int, height: int,
     gid_starts = torch.cat([torch.zeros((1,), dtype=_I32, device=dev),
                             cumsum_rows(kept)])
     return _finalize(key_e, gid_e, tcounts, total, overflow, gid_starts,
+                     T, E_cap, pad_cap, db, N)
+
+
+def seg_capacity(entry_cap: int) -> int:
+    """Static row-segment capacity of the row-tight path: one segment per
+    (Gaussian, touched tile row); half the entry budget, as the reference
+    (msgs/kernels/binning.py:588)."""
+    return max(_pad_ecap(entry_cap) // 2, 16384)
+
+
+def _marker_cumsum(offsets, length: int):
+    """gid per slot: slot s ∈ [offsets[g], offsets[g+1]) ↦ g, by a marker
+    scatter and a prefix sum (values < 2^24, exact in f32). A Gaussian with
+    no slots puts its marker on the next one's start slot, which the sum
+    then skips in one step; markers at or past `length` are dropped."""
+    markers = torch.zeros((length + 1,), dtype=_F32, device=offsets.device)
+    idx = torch.clamp(offsets, max=length).long()
+    markers.index_add_(0, idx, torch.ones(idx.shape, dtype=_F32,
+                                          device=idx.device))
+    return (cumsum_rows(markers[:length].contiguous()) - 1.0).to(_I32)
+
+
+def _bin_gaussians_rowtight(pre: PreprocessOut, width: int, height: int,
+                            entry_cap: int) -> Binned:
+    """Row-tight emission (msgs/kernels/binning.py:596): every Gaussian is
+    expanded into one segment per touched tile row, and each segment emits
+    the tiles of the ellipse's exact x-extent over its 16-pixel row band,
+    with the banded path's margins (`_band_span`). Segments are gid-major,
+    so each Gaussian's entries stay contiguous for `gid_starts`. The
+    segment and entry streams ride the same f32 delta scan as the rect
+    path; the entry offsets are an exact int32 prefix sum, and their f32
+    views round as the reference's do, so truncation keeps the same
+    Gaussians."""
+    tiles_x = (width + TILE - 1) // TILE
+    tiles_y = (height + TILE - 1) // TILE
+    T = tiles_x * tiles_y
+    N = pre.depths.shape[0]
+    dev = pre.depths.device
+    E_cap = entry_capacity(entry_cap, T)
+    entry_cap = _pad_ecap(entry_cap)
+    pad_cap = E_cap - entry_cap
+    db = _depth_bits(T)
+    R = seg_capacity(entry_cap)
+
+    # --- one segment per (Gaussian, touched tile row) ---
+    rect_h = torch.clamp(pre.rect_max[:, 1] - pre.rect_min[:, 1], min=0)
+    n_rows_raw = torch.where(pre.visible, rect_h, 0).to(_I32)
+    s_off, total_rows = _excl_cumsum(n_rows_raw)
+    seg_overflow = torch.clamp(total_rows - R, min=0)
+    kept_seg_g = s_off + n_rows_raw <= R            # prefix-closed
+    n_rows = n_rows_raw * kept_seg_g
+    total_kept_rows = n_rows.sum(dtype=_I32)
+
+    gid_seg = _marker_cumsum(s_off, R)              # (R,) slot → Gaussian
+    gid_c = torch.clamp(gid_seg, 0, N - 1).long()
+    valid_seg = torch.arange(R, dtype=_I32, device=dev) < total_kept_rows
+
+    # Per-Gaussian constants, gathered into the segment stream. A culled
+    # row's values may be non-finite: they are zeroed, since a NaN in any
+    # delta field would poison the whole prefix.
+    dqb = min(db, 23)
+    gtab = torch.stack([
+        pre.means2d[:, 0], pre.means2d[:, 1],
+        pre.conics[:, 0], pre.conics[:, 1], pre.conics[:, 2],
+        _inflated_k2(pre.opacities),
+        pre.rect_min[:, 0].to(_F32),
+        pre.rect_max[:, 0].to(_F32),
+        pre.rect_min[:, 1].to(_F32),
+        _depth_quanta(pre, dqb),
+        s_off.to(_F32)], dim=1)                     # (N, 11)
+    gtab = torch.where(pre.visible[:, None], gtab, 0.0)
+    gtab[:, 10] = s_off.to(_F32)
+    sg = gtab[gid_c]                                # (R, 11)
+    mx, my = sg[:, 0], sg[:, 1]
+    a, b, c = sg[:, 2], sg[:, 3], sg[:, 4]
+    k2s = sg[:, 5]
+    rminx, rmaxx, rminy = sg[:, 6], sg[:, 7], sg[:, 8]
+    dq_s, s_off_s = sg[:, 9], sg[:, 10]
+
+    q = torch.arange(R, dtype=_F32, device=dev) - s_off_s  # row in the rect
+    ty = rminy + q                                  # tile row
+    dy0 = ty * TILE - my                            # band [dy0, dy1]
+    dy1 = dy0 + (TILE - 1)
+
+    det = a * c - b * b
+    degen = det <= 1e-12
+    det_s = torch.clamp(det, min=1e-12)
+    k2p = torch.clamp(k2s, min=0.0)
+    ymax = torch.sqrt(k2p * torch.clamp(a, min=0.0) / det_s)
+    dxlo, dxhi, nonempty = _band_span(a, b, c, det_s, k2p, dy0, dy1, ymax)
+
+    row_live = valid_seg & nonempty & ~degen
+    hi_x = rmaxx - 1.0
+    txlo = torch.minimum(torch.maximum(torch.floor((mx + dxlo) / TILE),
+                                       rminx), hi_x)
+    txhi = torch.minimum(torch.maximum(torch.floor((mx + dxhi) / TILE),
+                                       rminx), hi_x)
+    # Degenerate conics fall back to the full rect row.
+    degen_v = degen & valid_seg
+    txlo = torch.where(degen_v, rminx, txlo)
+    txhi = torch.where(degen_v, hi_x, txhi)
+    use_row = valid_seg & (row_live | degen_v)
+    w_seg = torch.clamp(torch.where(use_row, txhi - txlo + 1.0, 0.0),
+                        min=0.0)
+
+    # --- entry offsets: exact int32; the f32 views round as JAX's do ---
+    w_i = w_seg.to(_I32)
+    c_incl_i = cumsum_rows(w_i)
+    e_off_i = c_incl_i - w_i
+    c_incl = c_incl_i.to(_F32)
+    e_off = e_off_i.to(_F32)
+    total_e = c_incl_i[-1]
+    # Overflow in entry units; a dropped tile row counts as 2 entries.
+    overflow = torch.maximum(torch.clamp(total_e - entry_cap, min=0),
+                             2 * seg_overflow)
+
+    # Whole-Gaussian truncation at the entry level (prefix-closed).
+    g_first = torch.clamp(s_off, 0, R - 1).long()
+    g_last = torch.clamp(s_off + n_rows_raw - 1, 0, R - 1).long()
+    base_g = e_off[g_first]
+    tot_g = torch.where(n_rows > 0, c_incl[g_last] - base_g, 0.0)
+    kept_g = kept_seg_g & (base_g + tot_g <= float(entry_cap)) & (n_rows > 0)
+    tot_kept_g = torch.where(kept_g, tot_g, 0.0)
+    w_eff = w_seg * kept_g[gid_c]
+    end_seg = e_off + w_eff
+
+    # --- per-tile counts: each segment's x-interval on its row, one
+    # difference per row (its y corner lies outside the grid), summed
+    # along x ---
+    ty_i = torch.where(w_eff > 0, ty, float(tiles_y)).to(_I32)
+    diffx = _onehot_diff_histogram(
+        ty_i, torch.full_like(ty_i, tiles_y + 1), txlo.to(_I32),
+        txhi.to(_I32) + 1, tiles_y + 1, tiles_x + 1)
+    tcounts = cumsum_rows(diffx)[:tiles_y, :tiles_x].reshape(-1)
+
+    # --- entry stream: 5-field f32 delta scan, division-free decode ---
+    # Segments past the kept rows emit nothing; their tile base is 0, as
+    # their ty grows with the slot index (past 2^24 at the bench scene)
+    # and would make the plane's prefix inexact past the last entry.
+    fields = torch.stack([
+        (gid_seg + 1).to(_F32),
+        e_off,
+        end_seg,
+        torch.where(valid_seg, ty * tiles_x + txlo, 0.0),  # column 0's tile
+        dq_s], dim=0)                               # (5, R)
+    cums, iota_f = _delta_scan(fields, torch.clamp(e_off_i, max=entry_cap),
+                               entry_cap)
+    gid = (cums[0] - 1.0).to(_I32)
+    off_f, end_f, txb_f, dq_e = cums[1], cums[2], cums[3], cums[4]
+    valid = iota_f < end_f
+    tile_e = (txb_f + (iota_f - off_f)).to(_I32)
+    key_e = torch.where(
+        valid, tile_e * (1 << db) + (dq_e.to(_I32) << (db - dqb)), NULL_KEY)
+    gid_e = torch.where(valid, gid, N)
+
+    gid_starts = torch.cat([torch.zeros((1,), dtype=_I32, device=dev),
+                            cumsum_rows(tot_kept_g).to(_I32)])
+    return _finalize(key_e, gid_e, tcounts, total_e, overflow, gid_starts,
                      T, E_cap, pad_cap, db, N)
 
 

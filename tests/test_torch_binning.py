@@ -11,7 +11,6 @@ from msgs.kernels import binning as jbin
 from msgs.kernels.preprocess import preprocess as jax_preprocess
 from msgs_torch.kernels import binning as tbin
 from msgs_torch.kernels.preprocess import PreprocessOut
-from msgs_torch.kernels.preprocess import preprocess as torch_preprocess
 from tests.helpers import make_scene
 from tests.torch_parity import assert_same, cameras, rotation, t, \
     tile_multisets
@@ -65,12 +64,3 @@ def test_capacity_layout_at_bench_shapes():
     assert tbin._pack_planes(widths) == jbin._pack_planes(widths)
     assert tbin._pack_planes(widths)[0] == 4
 
-
-def test_rowtight_not_ported():
-    means, scales, quats, opac, _ = make_scene(n=20, seed=1)
-    _, tcam = cameras(64, 64)
-    pre = torch_preprocess(tcam, t(means), t(opac), scales=t(scales),
-                           quats=t(quats),
-                           colors_precomp=t(np.ones((20, 3), np.float32)))
-    with pytest.raises(NotImplementedError):
-        tbin.bin_gaussians(pre, 64, 64, 1 << 12, row_tight=True)

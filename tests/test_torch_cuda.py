@@ -215,6 +215,40 @@ def test_render_on_card_matches_cpu(dev):
         assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
 
 
+@pytest.mark.parametrize("entry_cap", [1 << 15, 1000])
+def test_rowtight_binning_on_card_matches_plain(dev, entry_cap):
+    """Row-tight binning on the card (kernels 1 and 2) against the plain
+    path on the same preprocess output: every integer field equal, and
+    gauss_id per tile as a multiset; 1000 overflows."""
+    from msgs_torch.kernels.preprocess import PreprocessOut
+    rng = np.random.default_rng(88)
+    n = 800
+    m, s, q, o, c = (torch.tensor(np.asarray(a, np.float32), device=dev)
+                     for a in (np.concatenate([rng.uniform(-1.3, 1.3, (n, 2)),
+                                               rng.uniform(1, 8, (n, 1))], 1),
+                               np.exp(rng.uniform(-3.5, -1.5, (n, 3))),
+                               rng.normal(size=(n, 4)),
+                               rng.uniform(0.2, 0.95, n),
+                               rng.uniform(0, 1, (n, 3))))
+    cam = make_camera(np.eye(3), np.zeros(3), 0.9, 0.9, 88, 72, device=dev)
+    pre = preprocess(cam, m, o, colors_precomp=c, scales=s, quats=q)
+    a = bin_gaussians(pre, 88, 72, entry_cap, row_tight=True)
+    b = bin_gaussians(PreprocessOut(*(x.cpu() for x in pre)), 88, 72,
+                      entry_cap, row_tight=True)
+    for f in ("sub_tile", "sub_valid", "tile_nonempty", "tile_last_sub",
+              "num_entries", "overflow", "gid_starts"):
+        assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
+    assert (int(b.overflow) > 0) == (entry_cap == 1000)
+
+    def pairs(x):
+        sv = x.sub_valid.cpu().bool()
+        tile = x.sub_tile.cpu().long()[sv].repeat_interleave(32)
+        gid = x.gauss_id.cpu().long().view(-1, 32)[sv].reshape(-1)
+        return torch.sort(tile * (n + 1) + gid).values
+
+    assert torch.equal(pairs(a), pairs(b))
+
+
 def test_wrappers_refuse_other_dtypes(dev):
     with pytest.raises(TypeError):
         scan.cumsum_rows(torch.zeros(4, dtype=torch.int64, device=dev))

@@ -82,3 +82,48 @@ def tile_multisets(gauss_id, sub_tile, sub_valid, sub=32):
     for s in np.nonzero(sv == 1)[0]:
         out.setdefault(int(st[s]), []).extend(gid[s].tolist())
     return {k: sorted(v) for k, v in out.items()}
+
+
+def train_tiny(package: str, scene: str, out: str, iterations: int = 10):
+    """A tiny model trained on `scene` into `out` by the JAX trainer
+    (package "jax", reference backend) or the port's ("torch", on the
+    CPU), with a PLY snapshot and an npz checkpoint at the last iteration
+    and its evaluation logged."""
+    it = str(iterations)
+    argv = ["-s", scene, "-m", out, "--iterations", it, "--capacity", "256",
+            "--entry_cap", "4096", "--test_interval", "0",
+            "--test_iterations", it, "--save_iterations", it,
+            "--checkpoint_iterations", it, "--sh_degree", "1",
+            "--quiet"]
+    if package == "jax":
+        from msgs.apps import train
+        train.main(argv + ["--backend", "reference"])
+    else:
+        from msgs_torch.apps import train
+        with one_torch_thread():
+            train.main(argv + ["--device", "cpu", "--disable_gui",
+                               "--no_tensorboard"])
+
+
+def assert_pngs_match(dir_a: str, dir_b: str, floats_a=None):
+    """The PNGs of two folders decode equal, file for file. With
+    `floats_a` (the [0, 1] images folder a was quantised from, in file
+    order), a pixel may differ by 1 where that value·255 lies within
+    1e-5·255 of an integer, the truncation's boundary."""
+    import os
+
+    from msgs_torch.data.image import read_png
+    names = sorted(os.listdir(dir_a))
+    assert names == sorted(os.listdir(dir_b)) and names
+    for i, name in enumerate(names):
+        a = read_png(os.path.join(dir_a, name)).astype(np.int32)
+        b = read_png(os.path.join(dir_b, name)).astype(np.int32)
+        assert a.shape == b.shape, name
+        diff = np.abs(a - b)
+        if floats_a is None:
+            assert not diff.any(), f"{name}: {int((diff > 0).sum())} pixels"
+            continue
+        v = np.clip(np.asarray(floats_a[i], np.float64), 0, 1) * 255
+        near = np.abs(v - np.round(v)) <= 1e-5 * 255
+        bad = (diff > 1) | ((diff == 1) & ~near)
+        assert not bad.any(), f"{name}: {int(bad.sum())} pixels"
