@@ -163,6 +163,35 @@ Builds the CUDA kernels from msgs_torch/csrc (into build/msgs_torch/), then:
      between a 512² test render and its ground truth matches the same call
      on the CPU within rtol 2e-4 (tests/test_lpips.py's tolerance), and is
      timed (CUDA events).
+ 15. dist: inside the trainer's directory, sharded training
+     (msgs_torch/dist/) on the one card, every rank a process started with
+     `spawn` after the parent built the kernels. (1) Parity: 4 ranks as a
+     2×2 mesh over gloo take the sharded loss and its gradients for one
+     512² train view at λ 0.2 from the [trainer] model at iteration 0
+     (SH 3, capacity 131,072, entry_cap 1,048,576, the filters, bwd_bf16
+     and fast_grads, and with the exact backward); against the
+     single-device loss in this process the loss is within rtol 1e-5 and
+     every parameter and probe gradient within 3e-5·max|g| for the exact
+     backward (tests/test_dist.py's budgets), BF16_GRAD_REL·max|g| for the
+     bf16 settings; num_entries summed over the stripes and overflow are
+     printed beside the single-device ones; the ranks' counters must show
+     kernels 1, 2, 3, 4 and 4b. (2) NCCL refuses two ranks on the one card;
+     a world of one rank over NCCL (mesh 1×1) takes one sharded train step
+     that equals the single-device train_step (loss rtol 1e-5, Adam
+     moments 3e-5·max, the rest 1e-5·max, integers exact). (3) The dry run
+     of msgs_torch.dist.dryrun (dryrun_multichip(4)'s ranks and checks),
+     on part 1's ranks after it: the packet cap grows, densify and insert
+     run through the cold path, the loss ends finite with no overflow.
+     Parts 1 and 3 share one spawn of 4 ranks; part 2's rank runs beside
+     them, and each part's seconds are printed. (4) The trainer CLI under
+     torchrun (chip_smoke.py as each rank's entry, which calls
+     msgs_torch.apps.train.main and writes its counters), --mesh 2 2
+     --dist_backend gloo, the [trainer] flags cut to 300 iterations: the
+     logged losses at 100, 200 and 300 within LOSS_REL of [trainer]'s, the
+     live counts after each densify beside [trainer]'s, and the median
+     iteration time of four ranks sharing one card, and rank 0's timeline
+     (start-up, set-up, iterations, exit). Every rank's counters
+     come back and count in the kernel records (launches_dist).
 
 Any failed check raises, and the script exits non-zero without its result
 lines. On success the second-to-last lines are the nvidia-smi line and one
@@ -228,6 +257,27 @@ COARSE_LVLS = (3, 6)
 LOSS_REL = 1e-2
 REF_LOG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                        "quality", "ms", "train_log.jsonl")
+# [dist]: the [trainer] phase's model and settings, the JAX suite's sharded
+# budgets (tests/test_dist.py: loss rtol 1e-5, gradients 3e-5·max|g|, a
+# step's state 1e-5·max|x|), and the sharded trainer's iterations (its
+# first densify is at 300).
+DIST_CAPACITY = 131_072
+DIST_ENTRY_CAP = 1 << 20
+DIST_LAMBDA = 0.2
+DIST_ITERS = 300
+DIST_PROF = (150, 160)        # rank 0's torch.profiler window in [dist]
+GRAD_REL = 3e-5
+STEP_REL = 1e-5
+# [dist] parity's bound on the sharded gradients with the trainer's bf16
+# settings, relative to max|g|: about 6x the worst reading (1.52e-4, xyz,
+# on an NVIDIA H100 80GB HBM3 at 700 W). The stripes' SSIM convolutions round
+# differently from the whole image's, and the bf16 rounding of the
+# per-entry cotangents turns such a last-bit change into 2^-8 of an entry,
+# so the exact backward's 3e-5 does not hold here; it guards the sharding
+# on the exact pass.
+BF16_GRAD_REL = 1e-3
+# chip_smoke.py's own argument for a torchrun rank of [dist] part 4.
+DIST_TRAINER_FLAG = "--dist-trainer-rank"
 
 
 def fail(msg: str):
@@ -1747,6 +1797,7 @@ def phase_trainer(dev, smi_line):
         check(int(resumed.iteration) == 620,
               f"trainer: resume ended at {int(resumed.iteration)}")
         eval_counts, eval_rec = phase_eval(dev, model, p1, smi_line)
+        dist_counts, dist_rec = phase_dist(dev, scene, common, log, smi_line)
 
         # One train_step of the final state at each coarse level, as the
         # trainer takes it, for the bf16 backward's inputs there.
@@ -1781,7 +1832,437 @@ def phase_trainer(dev, smi_line):
           f"chkpnt600 to 620 ran; {smi_line}", flush=True)
     return counts, dict(times, wall_s=wall, busy=share,
                         median_iteration_ms=statistics.median(steps)), \
-        eval_counts, eval_rec
+        eval_counts, eval_rec, dist_counts, dist_rec
+
+
+# --- [dist]: sharded training on the one card (msgs_torch/dist/) ---------
+
+def dist_inputs(scene_dir, view_idx: int = 0) -> dict:
+    """What each [dist] rank gets of the trainer's scene: the initial point
+    cloud, one train view's camera matrices at ×1 and its ground truth
+    (numpy; the ranks rebuild tensors on their card)."""
+    from msgs_torch.data.dataset import load_scene
+    sc = load_scene(scene_dir, eval_split=True, device="cpu")
+    view = sc.train_views[view_idx]
+    cam = view.camera(1.0)
+    return {"points": sc.points, "colors": sc.colors,
+            "capacity": DIST_CAPACITY, "entry_cap": DIST_ENTRY_CAP,
+            "gt": np.asarray(view.image(1.0), np.float32),
+            "cam": (cam.world_view.numpy(), cam.full_proj.numpy(),
+                    2 * math.atan(float(cam.tanfovx)),
+                    2 * math.atan(float(cam.tanfovy)), cam.width,
+                    cam.height)}
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def dist_model(inp, dev, bf16: bool):
+    """(cfg, state, camera, gt, settings) of [dist]: the [trainer] phase's
+    model at iteration 0 (SH 3, the MS-GS levels, inp's capacity:
+    131,072) and its settings (inp's entry_cap, 1,048,576; the filters;
+    with `bf16` its --bwd_bf16 --fast_grads, else the exact backward)."""
+    from msgs_torch.core.camera import make_camera_from_matrices
+    from msgs_torch.kernels.rasterize import RasterSettings
+    from msgs_torch.model.gaussians import GaussianConfig, \
+        create_from_points
+    cfg = GaussianConfig(sh_degree=3, reso_lvls=7, capacity=inp["capacity"])
+    st = create_from_points(cfg, inp["points"], inp["colors"], device=dev)
+    cam = make_camera_from_matrices(*inp["cam"], device=dev)
+    settings = RasterSettings(filter_small=True, filter_large=True,
+                              entry_cap=inp["entry_cap"],
+                              image_grads_only=True, grad_pack_bf16=bf16,
+                              bwd_bf16=bf16)
+    return cfg, st, cam, torch.as_tensor(inp["gt"], device=dev), settings
+
+
+def dist_parity_rank(rank: int, inp: dict) -> dict:
+    """[dist] part 1, one rank of the 2×2 mesh: the sharded loss and its
+    gradients for one view at λ = DIST_LAMBDA, with the exact backward and
+    with the trainer's bf16 settings. The t = 0 rank of each gauss shard
+    returns its gradients."""
+    from msgs_torch.dist import shard as S
+    from msgs_torch.dist.mesh import make_mesh
+    from msgs_torch.dist.multihost import current_rank_device
+    from msgs_torch.kernels import _build
+    from msgs_torch.train.loop import init_train_state
+    dev = current_rank_device()
+    mesh = make_mesh(2, 2, device=dev)
+    out = {"coord": (mesh.g, mesh.t), "launch_counts": {}}
+    for bf16 in (False, True):
+        cfg, st, cam, gt, settings = dist_model(inp, dev, bf16)
+        hp = S.padded_height(cam.height, mesh.n_stripes)
+        gts = S.pad_gt(gt, hp)[mesh.stripe_rows(hp)].contiguous()
+        local = S.shard_train_state(init_train_state(st), mesh,
+                                    cfg.capacity).gaussians
+        params, side = S.state_as_dicts(local)
+        loss_fn = S.build_sharded_loss(mesh, cfg, settings, cam.height,
+                                       cam.width, lambda_dssim=DIST_LAMBDA)
+        probe = torch.zeros((local.xyz.shape[0], 2), device=dev)
+        sync(dev)
+        _build.reset_launch_counts()
+        (loss, aux), (grads, pg) = S.sharded_value_and_grad(
+            mesh, loss_fn, params, side, probe, cam, gts)
+        sync(dev)
+        add_counts(out["launch_counts"], _build.launch_counts)
+        r = {"loss": float(loss), "num_entries": int(aux.num_entries),
+             "overflow": int(aux.overflow),
+             "exch_overflow": int(aux.exch_overflow)}
+        if mesh.t == 0:
+            r["grads"] = {k: v.cpu().numpy() for k, v in grads.items()}
+            r["probe"] = pg.cpu().numpy()
+        out[bf16] = r
+    out["host_bytes"] = mesh.stats["host_bytes"]
+    return out
+
+
+def dist_gloo_rank(rank: int, inp: dict) -> dict:
+    """[dist] parts 1 and 3 in one spawn of the 2×2 mesh over gloo: the
+    parity pass, then the dry run's rank (msgs_torch.dist.dryrun), with
+    each part's seconds on this rank."""
+    from msgs_torch.dist.dryrun import dryrun_rank
+    t0 = time.perf_counter()
+    out = {"parity": dist_parity_rank(rank, inp)}
+    t1 = time.perf_counter()
+    if torch.cuda.is_initialized():
+        torch.cuda.empty_cache()
+    out["dryrun"] = dryrun_rank(rank, 4)
+    out["seconds"] = (t1 - t0, time.perf_counter() - t1)
+    return out
+
+
+def dist_reference(inp, dev, bf16: bool) -> dict:
+    """[dist] part 1's single-device side: the loss and the gradients of
+    every parameter and of the probe (numpy), the entries and overflow,
+    of one render of dist_model(inp, dev, bf16) in this process."""
+    from msgs_torch.eval.metrics import photometric_loss
+    from msgs_torch.train.loop import render_state
+    cfg, st, cam, gt, settings = dist_model(inp, dev, bf16)
+    params = {k: v.clone().requires_grad_() for k, v in st.params().items()}
+    probe = torch.zeros((cfg.capacity, 2), device=dev, requires_grad=True)
+    out = render_state(st.with_params(params), cam, cfg, settings,
+                       bg=torch.zeros(3, device=dev), means2d_probe=probe)
+    loss = photometric_loss(out.image, gt, DIST_LAMBDA)
+    gs = torch.autograd.grad(loss, list(params.values()) + [probe],
+                             allow_unused=True)
+    grads = {}
+    for name, g in list(zip(params, gs[:-1])) + [("probe", gs[-1])]:
+        like = probe if name == "probe" else params[name]
+        grads[name] = (torch.zeros_like(like) if g is None else g
+                       ).detach().cpu().numpy()
+    return {"loss": float(loss), "grads": grads,
+            "num_entries": int(out.num_entries),
+            "overflow": int(out.overflow), "capacity": cfg.capacity}
+
+
+def timed(fn, *args, **kwargs):
+    """(fn(*args, **kwargs), its seconds)."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    return out, time.perf_counter() - t0
+
+
+def dist_nccl_rank(rank: int, inp: dict) -> dict:
+    """[dist] part 2: a world of one rank over NCCL (mesh 1×1), one sharded
+    train step against the single-device train_step from the same state,
+    in this process, with the exact backward."""
+    from msgs_torch.dist import shard as S
+    from msgs_torch.dist.mesh import make_mesh
+    from msgs_torch.dist.multihost import current_rank_device
+    from msgs_torch.kernels import _build
+    from msgs_torch.train.loop import init_train_state, train_step
+    from msgs_torch.train.optimizer import OptimParams
+    dev = current_rank_device()
+    cfg, st, cam, gt, settings = dist_model(inp, dev, bf16=False)
+    mesh = make_mesh(1, 1, device=dev)
+    state = init_train_state(st)
+    step = S.build_sharded_train_step(mesh, cfg, OptimParams(), settings,
+                                      cam.height, cam.width,
+                                      spatial_lr_scale=1.0,
+                                      lambda_dssim=DIST_LAMBDA)
+    hp = S.padded_height(cam.height, 1)
+    sync(dev)
+    _build.reset_launch_counts()
+    sh, m = step(S.shard_train_state(state, mesh, cfg.capacity), cam,
+                 S.pad_gt(gt, hp))
+    sync(dev)
+    counts = dict(_build.launch_counts)
+    one, m1 = train_step(state, cam, gt, cfg=cfg, op=OptimParams(),
+                         settings=settings, reso_lvl=0,
+                         spatial_lr_scale=1.0, lambda_dssim=DIST_LAMBDA)
+    worst = {}
+    for name, a, b in (
+            [(f"g.{k}", getattr(sh.gaussians, k), getattr(one.gaussians, k))
+             for k in sh.gaussians._fields]
+            + [(f"mu.{k}", sh.adam.mu[k], one.adam.mu[k])
+               for k in sh.adam.mu]
+            + [(f"nu.{k}", sh.adam.nu[k], one.adam.nu[k])
+               for k in sh.adam.nu]):
+        if a.dtype.is_floating_point:
+            scale = max(float(b.abs().max()), 1e-8)
+            # The first moment is 0.1·gradient, the second 0.001·g²: the
+            # gradient budget; parameters and side state: tests/
+            # test_dist.py's step budget.
+            budget = (GRAD_REL if name[:3] in ("mu.", "nu.")
+                      else STEP_REL) * scale
+            err = float((a - b).abs().max())
+            worst[name] = err / scale
+            check(err <= budget, f"[dist] NCCL 1x1 step: {name} off the "
+                  f"single-device step by {err:.3e} > {budget:.3e}")
+        else:
+            check(bool(torch.equal(a, b)), f"[dist] NCCL 1x1 step: {name} "
+                  f"differs from the single-device step")
+    rel = abs(float(m["loss"]) - float(m1["loss"])) / abs(float(m1["loss"]))
+    check(rel <= 1e-5, f"[dist] NCCL 1x1 loss rel {rel:.2e}")
+    return {"backend": mesh.backend,
+            "loss": float(m["loss"]), "loss_single": float(m1["loss"]),
+            "num_entries": int(m["num_entries"]),
+            "num_entries_single": int(m1["num_entries"]),
+            "worst": max(worst.items(), key=lambda kv: kv[1]),
+            "launch_counts": counts}
+
+
+def dist_trainer_child(out_dir: str, argv: list) -> int:
+    """One rank of [dist] part 4, started by torchrun: the trainer CLI's
+    main on argv, then this rank's launch counts and iteration stamps into
+    out_dir/rank<RANK>.json."""
+    t_enter = time.perf_counter()
+    from msgs_torch.apps import train as train_app
+    from msgs_torch.kernels import _build
+    stamps = []
+
+    def on_iteration(it, host_ops):
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        stamps.append((it, host_ops, time.perf_counter()))
+
+    _build.reset_launch_counts()
+    train_app.main(argv, on_iteration=on_iteration)
+    rank = int(os.environ["RANK"])
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"launch_counts": dict(_build.launch_counts),
+                   "stamps": stamps, "t_enter": t_enter}, f)
+    return 0
+
+
+def trace_breakdown(trace_path: str, n: int = 4) -> str:
+    """The n device activities (kernels, copies) of a Chrome trace with
+    the most summed time, and the host time in gloo's collectives, in ms."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    dev_ms, gloo_ms = collections.Counter(), 0.0
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            dev_ms[e["name"][:60]] += e["dur"] / 1e3
+        elif e.get("cat") == "user_annotation" and \
+                e["name"].startswith("gloo:"):
+            gloo_ms += e["dur"] / 1e3
+    return (", ".join(f"{k} {v:.3f}" for k, v in dev_ms.most_common(n))
+            + f"; host in gloo collectives {gloo_ms:.3f}")
+
+
+def add_counts(total: dict, counts: dict):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def phase_dist(dev, scene, trainer_common, trainer_log, smi_line):
+    """Sharded training on the one card (see the module docstring, item
+    15). Returns the launch counts of every rank of the four parts."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from msgs_torch.dist.dryrun import check_records
+    from msgs_torch.dist.launch import run_ranks
+    from msgs_torch.profile_render import _device_busy_ms
+    t_phase = time.perf_counter()
+    counts = {}
+    card = torch.device("cuda", 0)
+    inp = dist_inputs(scene)
+
+    # NCCL refuses two ranks on the one card (before any rank starts).
+    try:
+        run_ranks(dist_nccl_rank, 2, (inp,), backend="nccl", device="cuda")
+        fail("[dist] NCCL accepted two ranks on one card")
+    except ValueError as e:
+        print(f"[dist] NCCL with 2 ranks on 1 card refused: {e}", flush=True)
+
+    # Parts 1 and 3 (4 ranks, 2×2 over gloo, sharing the card) and part 2
+    # (one rank over NCCL) run side by side; this process computes part
+    # 1's single-device side meanwhile.
+    with ThreadPoolExecutor(2) as pool:
+        gloo_f = pool.submit(timed, run_ranks, dist_gloo_rank, 4, (inp,),
+                             backend="gloo", device=card)
+        nccl_f = pool.submit(timed, run_ranks, dist_nccl_rank, 1, (inp,),
+                             backend="nccl", device="cuda")
+        refs, t_ref = timed(lambda: {bf16: dist_reference(inp, dev, bf16)
+                                     for bf16 in (False, True)})
+        ranks, t_gloo = gloo_f.result()
+        (nccl,), t_nccl = nccl_f.result()
+
+    # 1. Parity at full width.
+    parity = [r["parity"] for r in ranks]
+    rank_counts = {}
+    for r in parity:
+        add_counts(rank_counts, r["launch_counts"])
+    add_counts(counts, rank_counts)
+    for k in ("scan_f32", "scan_i32", "composite_fwd", "composite_bwd",
+              "composite_bwd_bf16"):
+        check(rank_counts.get(k, 0) > 0, f"[dist] parity: kernel {k} never "
+              f"launched on the ranks")
+    for bf16 in (False, True):
+        # The exact backward is held to tests/test_dist.py's budget, the
+        # trainer's bf16 settings to BF16_GRAD_REL (see there).
+        budget = BF16_GRAD_REL if bf16 else GRAD_REL
+        ref = refs[bf16]
+        loss = ref["loss"]
+        for r in parity:
+            rel = abs(r[bf16]["loss"] - loss) / abs(loss)
+            check(rel <= 1e-5, f"[dist] parity (bf16 {bf16}): rank "
+                  f"{r['coord']} loss {r[bf16]['loss']} vs single-device "
+                  f"{loss} (rel {rel:.2e})")
+            check(r[bf16]["overflow"] == 0 and r[bf16]["exch_overflow"] == 0,
+                  f"[dist] parity: overflow on rank {r['coord']}")
+        shards = [r[bf16] for r in parity if r["coord"][1] == 0]
+        worst = {}
+        for name, want in ref["grads"].items():
+            got = np.concatenate([s["probe"] if name == "probe"
+                                  else s["grads"][name] for s in shards])
+            scale = max(float(np.abs(want).max()), 1e-8)
+            err = float(np.abs(got - want).max())
+            worst[name] = err / scale
+            check(err <= budget * scale, f"[dist] parity (bf16 {bf16}): "
+                  f"gradient {name} off by {err:.3e} > {budget}·max|g| = "
+                  f"{budget * scale:.3e}")
+        r0 = parity[0][bf16]
+        print(f"[dist] parity, mesh 2x2 (4 ranks on one card over gloo), "
+              f"one 512x512 view at lambda {DIST_LAMBDA}, capacity "
+              f"{ref['capacity']}, "
+              f"{'bwd_bf16 + fast_grads' if bf16 else 'exact backward'}: "
+              f"loss {r0['loss']:.8f} vs single-device {loss:.8f}; "
+              f"num_entries over the stripes {r0['num_entries']} vs "
+              f"{ref['num_entries']}, overflow {r0['overflow']} vs "
+              f"{ref['overflow']}, exchange overflow "
+              f"{r0['exch_overflow']}; worst gradient |err|/max|g| "
+              f"{max(worst.values()):.2e} ({max(worst, key=worst.get)}; "
+              f"budget {budget}); all: "
+              + ", ".join(f"{k} {v:.1e}" for k, v in worst.items()),
+              flush=True)
+    print(f"[dist] parity ranks' launches {rank_counts}; host-staged bytes "
+          f"per rank {[r['host_bytes'] for r in parity]}", flush=True)
+
+    # 2. One step over NCCL, a world of 1 (mesh 1×1).
+    check(nccl["backend"] == "nccl", f"[dist] part 2 ran on "
+          f"{nccl['backend']}")
+    add_counts(counts, nccl["launch_counts"])
+    print(f"[dist] NCCL 1x1: one sharded train_step, loss "
+          f"{nccl['loss']:.8f} vs single-device {nccl['loss_single']:.8f}, "
+          f"num_entries {nccl['num_entries']} vs "
+          f"{nccl['num_entries_single']}; worst state field "
+          f"{nccl['worst'][0]} at {nccl['worst'][1]:.2e} of its max "
+          f"(budgets: moments {GRAD_REL}, parameters {STEP_REL}); "
+          f"launches {nccl['launch_counts']}", flush=True)
+
+    # 3. The dry run, on the same 4 ranks after part 1.
+    recs = [r["dryrun"] for r in ranks]
+    check_records(recs)
+    for r in recs:
+        add_counts(counts, r["launch_counts"])
+    r = recs[0]
+    print(f"[dist] dryrun_multichip(4) on the card over gloo: mesh "
+          f"{r['mesh']}, {r['H']}x{r['W']}, loss {r['loss']:.6f}, packet_cap "
+          f"{r['packet_cap'][0]} -> {r['packet_cap'][1]} ({r['grown']} "
+          f"growths), densify live {r['densified'][0]} -> "
+          f"{r['densified'][1]}, insert {r['inserted']} aggregates, "
+          f"overflow {r['overflow']}/{r['exch_overflow']}", flush=True)
+    secs = np.array([r["seconds"] for r in ranks])
+    print(f"[dist] parts 1-3 (wall, host clock, {smi_line}): 4 gloo ranks "
+          f"{t_gloo:.1f} s (on rank 0: parity {secs[0, 0]:.1f} s, dry run "
+          f"{secs[0, 1]:.1f} s, the rest start-up), the NCCL rank "
+          f"{t_nccl:.1f} s beside them, the single-device side "
+          f"{t_ref:.1f} s in this process meanwhile", flush=True)
+
+    # 4. The trainer CLI under torchrun, mesh 2×2 over gloo on the card.
+    with tempfile.TemporaryDirectory() as tmp:
+        model = os.path.join(tmp, "model")
+        argv = trainer_common + [
+            "-m", model, "--iterations", str(DIST_ITERS),
+            "--test_iterations", "-1", "--save_iterations", "-1",
+            "--mesh", "2", "2", "--dist_backend", "gloo",
+            "--profile_steps", f"{DIST_PROF[0]}:{DIST_PROF[1]}"]
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "4", os.path.abspath(__file__),
+             DIST_TRAINER_FLAG, tmp, *argv],
+            capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        check(run.returncode == 0, f"[dist] torchrun trainer rc "
+              f"{run.returncode}:\n{run.stdout[-3000:]}\n"
+              f"{run.stderr[-3000:]}")
+        children = [json.load(open(os.path.join(tmp, f"rank{i}.json")))
+                    for i in range(4)]
+        log = [json.loads(l) for l in open(os.path.join(
+            model, "train_log.jsonl"))]
+        trace = os.path.join(model, "profile", "trace.json")
+        busy = _device_busy_ms(trace) if os.path.exists(trace) else None
+        top = trace_breakdown(trace) if busy else "not measured"
+    tr_counts = {}
+    for c in children:
+        add_counts(tr_counts, c["launch_counts"])
+    add_counts(counts, tr_counts)
+    for k in ("scan_f32", "scan_i32", "composite_fwd", "composite_bwd_bf16"):
+        check(tr_counts.get(k, 0) > 0, f"[dist] trainer: kernel {k} never "
+              f"launched on the ranks")
+    losses = {r["it"]: r["loss"] for r in log if "loss" in r}
+    single = {r["it"]: r["loss"] for r in trainer_log if "loss" in r}
+    for it in (100, 200, 300):
+        rel = abs(losses[it] - single[it]) / single[it]
+        print(f"[dist] trainer loss at {it}: {losses[it]:.6f} (mesh 2x2) vs "
+              f"{single[it]:.6f} ([trainer], one rank) rel {rel:.2e}",
+              flush=True)
+        check(rel <= LOSS_REL, f"[dist] trainer: loss at {it} off the "
+              f"single-device run's by {rel:.2e} > {LOSS_REL}")
+    ev = [r for r in log if r.get("event") == "densify"]
+    ev1 = {r["it"]: r for r in trainer_log if r.get("event") == "densify"}
+    check(bool(ev), "[dist] trainer: no densify")
+    for r in ev:
+        o = ev1.get(r["it"], {})
+        print(f"[dist] trainer densify at {r['it']}: live "
+              f"{r['live_before']} -> {r['live_after']} (mesh 2x2) vs "
+              f"{o.get('live_before')} -> {o.get('live_after')} "
+              f"([trainer])", flush=True)
+    st0 = children[0]["stamps"]
+    # Rank 0's timeline on the host's monotonic clock (shared by the
+    # processes): torchrun and the interpreter up to the rank's entry, the
+    # trainer's set-up and iteration 1, iterations 2.., torchrun's exit.
+    t_enter = children[0]["t_enter"]
+    spans = (t_enter - t0, st0[0][2] - t_enter, st0[-1][2] - st0[0][2],
+             t0 + wall - st0[-1][2])
+    steps = [(b[2] - a[2]) * 1e3 for a, b in zip(st0, st0[1:])
+             if not b[1] and not DIST_PROF[0] <= b[0] <= DIST_PROF[1]]
+    med = statistics.median(steps)
+    win = [x for x in st0 if DIST_PROF[0] <= x[0] < DIST_PROF[1]]
+    span = (win[-1][2] - win[0][2]) * 1e3 if len(win) > 1 else None
+    share = (f"{busy:.3f} of {span:.3f} ms ({100 * busy / span:.1f}%) "
+             f"over iterations {win[0][0] + 1}..{win[-1][0]}"
+             if busy and span else "not measured")
+    print(f"[dist] trainer, 4 ranks sharing one card over gloo (not a "
+          f"multi-card number): {DIST_ITERS} iterations in {wall:.1f} s "
+          f"wall with start-up; median iteration {med:.3f} ms over "
+          f"{len(steps)} plain iterations (rank 0's host clock, "
+          f"synchronised); rank 0's own kernels busy {share} (profiled); "
+          f"its largest device items, ms over the window: {top}; "
+          f"launches {tr_counts}; {smi_line}", flush=True)
+    print(f"[dist] trainer wall {wall:.1f} s: to rank 0's entry "
+          f"{spans[0]:.1f}, set-up and iteration 1 {spans[1]:.1f}, "
+          f"iterations 2-{DIST_ITERS} {spans[2]:.1f}, exit {spans[3]:.1f} "
+          f"(host clock)", flush=True)
+    print(f"[dist] {time.perf_counter() - t_phase:.1f} s ({smi_line})",
+          flush=True)
+    return counts, {"median_iteration_ms": med, "wall_s": wall,
+                    "rank0_busy": share, "rank0_top": top}
 
 
 def phase_tools(dev, st, smi_line):
@@ -2401,6 +2882,8 @@ def main():
         return 2
     if sys.argv[1:2] == [FRESH_FLAG]:
         return fresh_device_child(sys.argv[2])
+    if sys.argv[1:2] == [DIST_TRAINER_FLAG]:
+        return dist_trainer_child(sys.argv[2], sys.argv[3:])
     t_start = time.perf_counter()
     dev, smi_line = phase_device()
     phase_build()
@@ -2450,8 +2933,8 @@ def main():
     del st
     phase_small_reference(dev)
     phase_train_small(dev)
-    trainer_counts, trainer_times, eval_counts, eval_rec = phase_trainer(
-        dev, smi_line)
+    (trainer_counts, trainer_times, eval_counts, eval_rec, dist_counts,
+     dist_rec) = phase_trainer(dev, smi_line)
 
     records = []
     meta = {
@@ -2491,14 +2974,14 @@ def main():
     kernel_recs += list(bwd2_recs.items())
     runs = (serve_counts, rowtight_counts, tools_counts, mxu_counts,
             ablate_counts, bwd2_counts, train_counts, trainer_counts,
-            eval_counts)
+            eval_counts, dist_counts)
     for name, rec in kernel_recs:
         src, rep = meta[name]
-        # launches: over the nine main-path runs, each counted from 0
+        # launches: over the ten main-path runs, each counted from 0
         # (serving renders, row-tight binning, the gather tools, the
         # pair-math probe, the ablations, the follow-up experiments,
-        # train_step calls, the trainer, the evaluation apps); then each
-        # run's. The follow-up experiments' records
+        # train_step calls, the trainer, the evaluation apps, and every
+        # rank of the sharded runs); then each run's. The follow-up experiments' records
         # share the ablation kernels' counters; [bwd2] gives each record
         # the launches of its own runs.
         records.append({
@@ -2516,8 +2999,10 @@ def main():
             "launches_bwd2": bwd2_counts.get(name, 0),
             "launches_rowtight": rowtight_counts.get(name, 0),
             "launches_eval": eval_counts.get(name, 0),
+            "launches_dist": dist_counts.get(name, 0),
             **({"rowtight": rowtight_rec} if name == "scan_f32" else {}),
             **({"eval": eval_rec} if name == "composite_fwd" else {}),
+            **({"dist": dist_rec} if name == "composite_fwd" else {}),
             **({"trainer_shapes": trainer_times[name]}
                if name in trainer_times else {}),
             **rec.get("extra", {})})

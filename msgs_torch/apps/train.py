@@ -16,12 +16,27 @@ scalars (overflow, loss, live count) are read back once per 10 iterations,
 so the host never waits on the card each step; ground-truth images are
 cached on the device per (view, scale).
 
-Beyond the JAX flags: `--device` (default: the CUDA device). Not ported:
-`--mesh`, `--packet_cap` and `--multihost` (sharded training, ROADMAP.md,
-`msgs/dist/`) raise; the network GUI is not ported, and without
+Beyond the JAX flags: `--device` (default: the CUDA device) and
+`--dist_backend`. The network GUI is not ported, and without
 `--disable_gui` the trainer says so and carries on. The final evaluation
 adds LPIPS when its weight file exists (msgs_torch/eval/lpips.py), as the
 JAX trainer does.
+
+Sharded training (`--mesh G T`, msgs_torch/dist/) runs one process a mesh
+cell, started by torchrun:
+
+  torchrun --nproc_per_node G·T -m msgs_torch.apps.train --mesh G T ...
+
+Parameters and Adam moments are sharded over the G gauss shards, the image
+rows over all G·T ranks (the bounded splat exchange, dist/shard.py). The
+cold path (evaluation, saves, densify, reset, insert, capacity growth)
+all-gathers the state; rank 0 runs the single-device code on it and
+broadcasts the result, and each rank takes its shard again. Only rank 0
+writes logs, PLYs and checkpoints. `--dist_backend` is nccl (one card a
+rank; the default on CUDA) or gloo (ranks may share a card; the default on
+`--device cpu`); nothing switches it. Rank r takes card r modulo the
+host's cards; `--device cuda:N` puts every rank on card N (gloo only).
+`--multihost` spreads the ranks over hosts: LOCAL_RANK picks the card.
 `--profile_steps A:B` traces iterations [A, B) with torch.profiler into
 <model_path>/profile/; `--detect_anomaly` turns on
 torch.autograd.set_detect_anomaly.
@@ -108,16 +123,27 @@ def build_parser():
                         "torch.profiler into <model_path>/profile/")
     p.add_argument("--mesh", nargs=2, type=int, default=None,
                    metavar=("GAUSS", "TILE"),
-                   help="sharded training (not ported: ROADMAP.md, "
-                        "msgs/dist/)")
+                   help="train sharded over a GAUSS x TILE mesh of ranks, "
+                        "started by torchrun --nproc_per_node GAUSS*TILE "
+                        "(params/Adam gauss-sharded, image row stripes over "
+                        "both axes, bounded all-to-all splat exchange; "
+                        "msgs_torch/dist/shard.py). Structural ops gather "
+                        "-> mutate on rank 0 -> reshard at their cadence.")
     p.add_argument("--packet_cap", type=int, default=0,
-                   help="sharded exchange rows (not ported: ROADMAP.md, "
-                        "msgs/dist/)")
+                   help="per-(source,stripe) splat packet rows for the "
+                        "sharded exchange; 0 = auto, grows on overflow")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-host training (not ported: ROADMAP.md, "
-                        "msgs/dist/)")
+                   help="the --mesh ranks span hosts (torchrun's "
+                        "MASTER_ADDR / MASTER_PORT / WORLD_SIZE / RANK); "
+                        "LOCAL_RANK picks the card "
+                        "(msgs_torch/dist/multihost.py)")
+    p.add_argument("--dist_backend", choices=("nccl", "gloo"), default=None,
+                   help="torch.distributed backend of --mesh: nccl (one "
+                        "card a rank; the default on CUDA) or gloo (ranks "
+                        "may share a card; the default on --device cpu)")
     p.add_argument("--device", type=str, default=None,
-                   help="torch device (default: the CUDA device)")
+                   help="torch device (default: the CUDA device; under "
+                        "--mesh a card a rank, cuda:N every rank on card N)")
     return p
 
 
@@ -130,18 +156,59 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
+def _init_mesh(args):
+    """(mesh, is_main, device) of this process. Without --mesh: no mesh,
+    the one process writes, on --device. With it: this rank's place in the
+    mesh, after it has joined torchrun's process group (training destroys
+    the group at its end)."""
+    from msgs_torch import resolve_device
+    if not args.mesh:
+        if args.multihost:
+            raise ValueError("--multihost spreads the ranks of a --mesh over "
+                             "hosts; give --mesh GAUSS TILE")
+        return None, True, resolve_device(args.device)
+    import torch.distributed as dist
+
+    from msgs_torch.dist.mesh import make_mesh
+    from msgs_torch.dist.multihost import maybe_initialize, rank_device, \
+        torchrun_env
+    n_gauss, n_tile = args.mesh
+    if not torchrun_env():
+        raise RuntimeError(
+            f"--mesh {n_gauss} {n_tile} runs one process a mesh cell; start "
+            f"it with\n  torchrun --nproc_per_node {n_gauss * n_tile} -m "
+            f"msgs_torch.apps.train --mesh {n_gauss} {n_tile} ...")
+    on_cpu = (args.device is not None
+              and torch.device(args.device).type == "cpu")
+    backend = args.dist_backend or ("gloo" if on_cpu else "nccl")
+    dev = rank_device(args.device, backend, args.multihost)
+    is_main = maybe_initialize(True, backend=backend, device=dev)
+    world = dist.get_world_size()
+    if world != n_gauss * n_tile:
+        raise ValueError(f"--mesh {n_gauss}x{n_tile} needs "
+                         f"{n_gauss * n_tile} ranks; the world has {world}")
+    if dev.type == "cuda":
+        # Rank 0 builds the kernels (or finds them built); the others load
+        # the library it wrote.
+        from msgs_torch.kernels import _build
+        if is_main:
+            _build.load()
+        dist.barrier()
+    return make_mesh(n_gauss, n_tile, device=dev), is_main, dev
+
+
 def training(args, on_iteration=None):
-    """Train; returns the final TrainState. `on_iteration(iteration,
-    host_ops)`, when given, is called at the end of every iteration;
-    `host_ops` says whether the iteration evaluated, saved or ran a
-    structural step."""
+    """Train; returns the final TrainState (under --mesh, the whole state,
+    gathered on every rank). `on_iteration(iteration, host_ops)`, when
+    given, is called at the end of every iteration; `host_ops` says
+    whether the iteration evaluated, saved or ran a structural step."""
     import faulthandler
     import signal
     faulthandler.register(signal.SIGUSR1)   # kill -USR1 <pid> → stack dump
 
-    from msgs_torch import resolve_device
     from msgs_torch.apps.config import extract_optim, save_cfg
     from msgs_torch.data.dataset import load_scene
+    from msgs_torch.dist import shard as S
     from msgs_torch.kernels.rasterize import RasterSettings
     from msgs_torch.model.gaussians import GaussianConfig, \
         create_from_points, one_up_sh_degree
@@ -149,31 +216,35 @@ def training(args, on_iteration=None):
     from msgs_torch.train import checkpoint as CK
     from msgs_torch.train import loop as L
 
-    for flag in ("mesh", "multihost", "packet_cap"):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"msgs_torch train: --{flag} (sharded / multi-host "
-                f"training) is not ported yet (ROADMAP.md, msgs/dist/)")
     if args.source_path_short:
         args.source_path = args.source_path_short
     if args.model_path_short:
         args.model_path = args.model_path_short
     if args.resolution_short is not None:
         args.resolution = args.resolution_short
-    dev = resolve_device(args.device)
+    mesh, is_main, dev = _init_mesh(args)
     op = extract_optim(args)
+    if not is_main:
+        # The other ranks compute but never write logs, TensorBoard or GUI.
+        args.no_tensorboard = True
+        args.disable_gui = True
+        args.quiet = True
+    say = print if is_main else (lambda *a, **k: None)
     random.seed(args.seed)
     np.random.seed(args.seed)
     if args.detect_anomaly:
         torch.autograd.set_detect_anomaly(True)
 
     os.makedirs(args.model_path, exist_ok=True)
-    save_cfg(args.model_path, args)
-    log_f = open(os.path.join(args.model_path, "train_log.jsonl"), "a")
+    log_f = None
+    if is_main:
+        save_cfg(args.model_path, args)
+        log_f = open(os.path.join(args.model_path, "train_log.jsonl"), "a")
 
     def log(rec):
-        log_f.write(json.dumps(rec) + "\n")
-        log_f.flush()
+        if log_f is not None:
+            log_f.write(json.dumps(rec) + "\n")
+            log_f.flush()
 
     tb = None
     if not args.no_tensorboard:
@@ -182,17 +253,24 @@ def training(args, on_iteration=None):
             tb = SummaryWriter(args.model_path)
         except ImportError:
             print("tensorboardX unavailable; logging to JSONL only")
+    # The 1,000-iteration histograms gather the state on every rank, so
+    # every rank learns once whether rank 0 writes them.
+    tb_histograms = tb is not None
+    if mesh is not None:
+        from msgs_torch.dist import collectives as X
+        tb_histograms = bool(X.broadcast(
+            torch.tensor(tb_histograms, device=dev), mesh.world))
     if not args.disable_gui:
         print("network GUI disabled: not ported to msgs_torch "
               "(training carries on without it)")
 
-    print(f"Loading scene {args.source_path}")
+    say(f"Loading scene {args.source_path}")
     scene = load_scene(args.source_path, images_dir=args.images,
                        eval_split=args.eval, resolution=args.resolution,
                        white_background=args.white_background, device=dev)
     extent = scene.cameras_extent
-    print(f"  {len(scene.train_views)} train / {len(scene.test_views)} test "
-          f"views, {len(scene.points)} points, extent {extent:.2f}")
+    say(f"  {len(scene.train_views)} train / {len(scene.test_views)} test "
+        f"views, {len(scene.points)} points, extent {extent:.2f}")
 
     sched = MsSchedule(max_reso_pow=args.ms_train_max_scale
                        if args.ms_train else 0,
@@ -212,7 +290,7 @@ def training(args, on_iteration=None):
         scene.points = scene.points[keep]
         scene.colors = scene.colors[keep]
         n0 = len(scene.points)
-        print(f"  subsampled init cloud to {n0} (capacity {capacity})")
+        say(f"  subsampled init cloud to {n0} (capacity {capacity})")
     cfg = GaussianConfig(sh_degree=args.sh_degree,
                          reso_lvls=sched.reso_lvls,
                          multi_occ=args.multi_occ, multi_dc=args.multi_dc,
@@ -236,36 +314,80 @@ def training(args, on_iteration=None):
         actual_cap = int(state.gaussians.xyz.shape[0])
         if actual_cap != cfg.capacity:
             cfg = cfg._replace(capacity=actual_cap)
-        print(f"Resumed from {args.start_checkpoint} at {first_iter} "
-              f"(capacity {actual_cap})")
+        say(f"Resumed from {args.start_checkpoint} at {first_iter} "
+            f"(capacity {actual_cap})")
+
+    # --- sharded training over the gauss × tile mesh (--mesh G T) ---
+    # Hot path: the sharded train step (dist/shard.py). Cold paths
+    # (evaluation, saves, structural steps) gather the state, run the
+    # single-device code on rank 0 and reshard its result.
+    packet_cap = args.packet_cap
+    spatial_lr = float(extent)
+    if mesh is not None:
+        if cfg.capacity % mesh.n_gauss:
+            raise ValueError(f"capacity {cfg.capacity} not divisible by the "
+                             f"gauss axis {mesh.n_gauss}")
+        state = S.shard_train_state(state, mesh, cfg.capacity)
+        say(f"mesh: {mesh.shape} over {mesh.n_stripes} ranks "
+            f"({mesh.backend}, {dev})")
+        sharded_steps = {}
+
+        def get_sharded_step(lvl, height, width):
+            k = (lvl, height, width, settings, cfg.capacity, packet_cap)
+            if k not in sharded_steps:
+                sharded_steps[k] = S.build_sharded_train_step(
+                    mesh, cfg, op, settings, height, width,
+                    spatial_lr_scale=spatial_lr, reso_lvl=lvl,
+                    loss_mult=loss_weight(lvl) if args.ms_train else 1.0,
+                    lambda_dssim=op.lambda_dssim, fade_size=args.fade_size,
+                    packet_cap=packet_cap)
+            return sharded_steps[k]
+
+    def unshard(s):
+        return s if mesh is None else S.fetch_train_state(s, mesh)
+
+    def reshard(s):
+        """Rank 0's whole state, sharded on every rank."""
+        if mesh is None:
+            return s
+        return S.shard_train_state(S.broadcast_train_state(s, mesh), mesh,
+                                   cfg.capacity)
 
     # The split's offsets come from this generator (the JAX trainer splits
-    # a PRNGKey made from the same seed; the draws differ).
+    # a PRNGKey made from the same seed; the draws differ). Under the mesh
+    # only rank 0's is used.
     key = torch.Generator(device=dev).manual_seed(args.seed)
     bg = torch.full((3,), 1.0 if args.white_background else 0.0,
                     dtype=torch.float32, device=dev)
 
-    # Device-resident GT cache per sampled (view, scale).
+    # Device-resident GT cache per sampled (view, scale); under the mesh,
+    # this rank's stripe of the image zero-padded to the stripe height.
     gt_cache = {}
 
     def gt_on_device(view, scale):
         k = (view.uid, scale)
         if k not in gt_cache:
-            gt_cache[k] = torch.as_tensor(view.image(scale), device=dev)
+            img = torch.as_tensor(view.image(scale), device=dev)
+            if mesh is not None:
+                hp = S.padded_height(img.shape[0], mesh.n_stripes)
+                img = S.pad_gt(img, hp)[mesh.stripe_rows(hp)].clone()
+            gt_cache[k] = img
         return gt_cache[k]
 
     viewpoint_stack = []
     cur_lvl = 0
     last_reset = None
     ema_loss = 0.0
-    spatial_lr = float(extent)
     t_start = time.time()
     pending_overflow = []   # the window's overflow scalars (async check)
+    pending_exch_overflow = []  # packet-exchange overflow (mesh mode)
     metrics = None
+    # Under the mesh the cold path's work runs on rank 0 alone.
+    run_ops = is_main
 
     prof = None
     profile_range = None
-    if args.profile_steps:
+    if args.profile_steps and is_main:
         a, b = args.profile_steps.split(":")
         profile_range = (int(a), int(b))
 
@@ -316,23 +438,42 @@ def training(args, on_iteration=None):
                  and cur_lvl == sched.reso_lvls - 1)
         ms_lr = (iteration >= args.ms_from_iter
                  and (args.multi_occ or args.multi_dc))
-        state, metrics = L.train_step(
-            state, cam, gt,
-            cfg=cfg, op=op, settings=settings, reso_lvl=cur_lvl,
-            spatial_lr_scale=spatial_lr, lambda_dssim=op.lambda_dssim,
-            loss_mult=loss_weight(cur_lvl) if args.ms_train else 1.0,
-            fade_size=args.fade_size,
-            do_px_update=do_px, do_densify_stats=do_ds,
-            do_base_mask=do_bm, ms_lr_active=ms_lr)
+        if mesh is not None:
+            step_fn = get_sharded_step(cur_lvl, cam.height, cam.width)
+            state, metrics = step_fn(state, cam, gt, do_px, do_ds, do_bm,
+                                     ms_lr)
+            pending_exch_overflow.append(metrics["exch_overflow"])
+        else:
+            state, metrics = L.train_step(
+                state, cam, gt,
+                cfg=cfg, op=op, settings=settings, reso_lvl=cur_lvl,
+                spatial_lr_scale=spatial_lr, lambda_dssim=op.lambda_dssim,
+                loss_mult=loss_weight(cur_lvl) if args.ms_train else 1.0,
+                fade_size=args.fade_size,
+                do_px_update=do_px, do_densify_stats=do_ds,
+                do_base_mask=do_bm, ms_lr_active=ms_lr)
         pending_overflow.append(metrics["overflow"])
 
         # Eval / save BEFORE structural ops, as the reference does, so
         # snapshots never capture a just-reset model.
         eval_due = iteration in args.test_iterations or (
             args.test_interval > 0 and iteration % args.test_interval == 0)
-        host_ops = eval_due or iteration in args.save_iterations \
-            or iteration in args.checkpoint_iterations
-        if eval_due:
+        densify_due = iteration > op.densify_from_iter and \
+            sched.reso_iterations[cur_lvl] % op.densification_interval == 0
+        reset_due = (iteration % op.opacity_reset_interval == 0
+                     or (args.white_background
+                         and iteration == op.densify_from_iter))
+        target = sched.insert_target_for(iteration) if args.insert_large \
+            else None
+        host_ops = (eval_due or iteration in args.save_iterations
+                    or iteration in args.checkpoint_iterations
+                    or (iteration < op.densify_until_iter
+                        and (densify_due or reset_due))
+                    or target is not None)
+        if mesh is not None and host_ops:
+            state = unshard(state)   # cold path: gather → mutate → reshard
+
+        if eval_due and run_ops:
             report = evaluate_scales(state, scene, sched, cfg, settings,
                                      args, bg, iteration)
             log({"it": iteration, "eval": report})
@@ -343,7 +484,7 @@ def training(args, on_iteration=None):
                     tb.add_scalar(f"eval/{k}/render_ms", m["render_ms"],
                                   iteration)
 
-        if iteration in args.save_iterations:
+        if iteration in args.save_iterations and run_ops:
             out_dir = os.path.join(args.model_path,
                                    f"point_cloud/iteration_{iteration}")
             os.makedirs(out_dir, exist_ok=True)
@@ -351,16 +492,13 @@ def training(args, on_iteration=None):
                                  state.gaussians)
             print(f"[save] {out_dir}")
 
-        if iteration in args.checkpoint_iterations:
+        if iteration in args.checkpoint_iterations and run_ops:
             CK.save_train_state(os.path.join(
                 args.model_path, f"chkpnt{iteration}.npz"), state)
 
         # Densification cadence.
         if iteration < op.densify_until_iter:
-            if (iteration > op.densify_from_iter
-                    and sched.reso_iterations[cur_lvl]
-                    % op.densification_interval == 0):
-                host_ops = True
+            if densify_due and run_ops:
                 if cur_lvl == 0:
                     size_thr = 20.0 if iteration > op.opacity_reset_interval \
                         else 0.0
@@ -370,51 +508,68 @@ def training(args, on_iteration=None):
                 elif args.grow_large:
                     state = structural("grow", lambda: L.grow_step(
                         state, cur_lvl, op=op), lvl=cur_lvl)
-            if (iteration % op.opacity_reset_interval == 0
-                    or (args.white_background
-                        and iteration == op.densify_from_iter)):
-                host_ops = True
+            if reset_due:
                 last_reset = iteration
-                state = structural("reset",
-                                   lambda: L.reset_opacity_step(state))
+                if run_ops:
+                    state = structural("reset",
+                                       lambda: L.reset_opacity_step(state))
 
         # Insert-large episode.
-        target = sched.insert_target_for(iteration) if args.insert_large \
-            else None
-        if target is not None:
-            host_ops = True
+        if target is not None and run_ops:
             state, n_ins, n_sel = run_insert_episode(
                 state, scene, sched, target, cfg, settings, extent, args)
             log({"it": iteration, "event": "insert", "lvl": target,
                  "n_inserted": n_ins, "n_selected": n_sel,
                  "live_after": int(state.gaussians.num_live)})
 
+        if mesh is not None and host_ops:
+            state = reshard(state)
+
         # Host-side housekeeping every 10 iterations: one read-back of the
         # window's overflow scalars (an overflowing step already discarded
-        # its own updates), the loss and the live count.
+        # its own updates), the loss and the live count. Under the mesh
+        # these are sums over the mesh, the same on every rank, so every
+        # rank makes the same decisions.
         if iteration % 10 == 0 or iteration == op.iterations:
             ovf = int(torch.stack(pending_overflow).max()) \
                 if pending_overflow else 0
             pending_overflow.clear()
             if ovf > 0:
                 new_cap = next_pow2(settings.entry_cap + ovf)
-                print(f"[entry_cap] overflow {ovf}; "
-                      f"growing {settings.entry_cap} -> {new_cap}")
+                say(f"[entry_cap] overflow {ovf}; "
+                    f"growing {settings.entry_cap} -> {new_cap}")
                 settings = settings._replace(entry_cap=new_cap)
+            if pending_exch_overflow:
+                eovf = int(torch.stack(pending_exch_overflow).max())
+                pending_exch_overflow.clear()
+                if eovf > 0:
+                    # Double from build_sharded_loss's effective default
+                    # (the step cache's key holds packet_cap, so the next
+                    # step is built with the new bound).
+                    auto = S.auto_packet_cap(cfg.capacity, mesh.n_gauss,
+                                             mesh.n_tile)
+                    packet_cap = 2 * (packet_cap or auto)
+                    say(f"[packet_cap] exchange overflow {eovf}; "
+                        f"growing to {packet_cap}")
             loss = float(metrics["loss"])
             ema_loss = 0.4 * loss + 0.6 * ema_loss
             n_live = int(metrics["num_live"])
             # Grow the Gaussian capacity when > 90% full.
             if n_live > 0.9 * cfg.capacity:
                 new_cap = cfg.capacity * 2
-                print(f"[capacity] growing {cfg.capacity} -> {new_cap}")
-                state = CK.grow_capacity(state, new_cap)
+                say(f"[capacity] growing {cfg.capacity} -> {new_cap}")
+                # The gathered state is the same on every rank, and the
+                # padding is deterministic: no broadcast is needed.
+                state = CK.grow_capacity(unshard(state), new_cap)
                 cfg = cfg._replace(capacity=new_cap)
-            if iteration % 100 == 0:
+                if mesh is not None:
+                    state = S.shard_train_state(state, mesh, new_cap)
+                    sharded_steps.clear()   # keyed on the old capacity
+            if iteration % 100 == 0 or iteration == op.iterations:
                 elapsed = time.time() - t_start
-                print(f"it {iteration:6d} lvl {cur_lvl} loss {ema_loss:.5f} "
-                      f"live {n_live} entries {int(metrics['num_entries'])} "
-                      f"({elapsed:.0f}s)")
+                say(f"it {iteration:6d} lvl {cur_lvl} loss {ema_loss:.5f} "
+                    f"live {n_live} entries {int(metrics['num_entries'])} "
+                    f"({elapsed:.0f}s)")
                 log({"it": iteration, "loss": loss, "lvl": cur_lvl,
                      "live": n_live, "t": elapsed})
                 if tb is not None:
@@ -425,24 +580,30 @@ def training(args, on_iteration=None):
                     tb.add_scalar("total_points", n_live, iteration)
                     tb.add_scalar("train/entries",
                                   int(metrics["num_entries"]), iteration)
-            if tb is not None and iteration % 1000 == 0:
-                st_g = state.gaussians
-                live_np = st_g.live.cpu().numpy()
-                tb.add_histogram(
-                    "scene/opacity_histogram",
-                    st_g.act_opacity().cpu().numpy()[live_np], iteration)
-                px_live = st_g.max_pixel_sizes.cpu().numpy()[live_np]
-                if (px_live >= 0).any():
-                    tb.add_histogram("scene/max_pixel_sizes",
-                                     px_live[px_live >= 0], iteration)
+            if iteration % 1000 == 0 and tb_histograms:
+                st_g = unshard(state).gaussians   # every rank gathers
+                if tb is not None:
+                    live_np = st_g.live.cpu().numpy()
+                    tb.add_histogram(
+                        "scene/opacity_histogram",
+                        st_g.act_opacity().cpu().numpy()[live_np], iteration)
+                    px_live = st_g.max_pixel_sizes.cpu().numpy()[live_np]
+                    if (px_live >= 0).any():
+                        tb.add_histogram("scene/max_pixel_sizes",
+                                         px_live[px_live >= 0], iteration)
         if on_iteration is not None:
             on_iteration(iteration, host_ops)
 
     if prof is not None:
         prof.__exit__(None, None, None)
-    log_f.close()
+    if log_f is not None:
+        log_f.close()
     if tb is not None:
         tb.close()
+    if mesh is not None:
+        import torch.distributed as dist
+        state = unshard(state)
+        dist.destroy_process_group()
     return state
 
 

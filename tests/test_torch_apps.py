@@ -75,9 +75,9 @@ def test_train_cli_end_to_end(fixture_scene, tmp_path):  # noqa: F811
     assert np.isfinite(psnr) and psnr > 10.0, psnr
     cfg = json.load(open(os.path.join(out, "cfg_args.json")))
     assert cfg["iterations"] == 40 and cfg["sh_degree"] == 1
-    # The JAX trainer's keys, and the port's --device.
+    # The JAX trainer's keys, and the port's --device and --dist_backend.
     assert set(cfg) == set(vars(jtrain.build_parser().parse_args([]))) | {
-        "device"}
+        "device", "dist_backend"}
     # Resume from the npz checkpoint.
     resumed = ttrain.main(common + [
         "-m", str(tmp_path / "resumed"), "--iterations", "35",
