@@ -193,6 +193,24 @@ Builds the CUDA kernels from msgs_torch/csrc (into build/msgs_torch/), then:
      (start-up, set-up, iterations, exit). Every rank's counters
      come back and count in the kernel records (launches_dist).
 
+ 16. apps: inside the trainer's directory, after [eval], the interactive
+     apps on its iteration-1100 PLY, on the card; counters are zeroed at
+     the start and read at the end: both scans and the forward compositor
+     ran, no backward. The viewer headless (--anti_alias) at --reso_scale
+     1 and 4, and at 1 with --device cpu: the card's view.png equal to the
+     CPU's but for 1 at the truncation boundary (1e-5 of the CPU's render;
+     msgs_torch.apps.render.truncation_mismatches); the --display key loop
+     through a stub cv2 playing back VIEWER_KEYS then ESC, frame.png the
+     frame shown at p. traj.trajectory_frames for TRAJ_FRAMES circle frames
+     sweeping x1 to x64 (after a 4-frame warm-up), the median synchronised
+     host ms per frame at each scale printed; traj.main end to end where
+     an mp4 encoder imports, else one line saying why not. One loopback
+     SIBR client sends GUI_REQUESTS requests for the first train view,
+     each answered through network_gui.serve_step on the card: every frame
+     equal to to_uint8(eval_render(...).image) of the camera receive built,
+     the median round trip printed. video_tools concat and
+     visualize_cameras on PNGs, importing none of PIL, imageio and cv2.
+
 Any failed check raises, and the script exits non-zero without its result
 lines. On success the second-to-last lines are the nvidia-smi line and one
 JSON object describing every kernel; the last line is the device record.
@@ -1609,6 +1627,252 @@ def phase_eval(dev, model, test_s1_psnr, smi_line):
                                    for n, r in reports.items()})
 
 
+# [apps]: the circle trajectory's frames and scale sweep, GUI requests.
+TRAJ_FRAMES = 48
+TRAJ_SCALES = (1.0, 64.0)
+GUI_REQUESTS = 10
+VIEWER_KEYS = "wi-;[p"
+
+
+def gui_client(port, msgs, result):
+    """A SIBR client: one connection, each request in turn, timing each
+    round trip (send to the last byte of the source path)."""
+    import socket
+    import struct
+    frames, ms = [], []
+    with socket.create_connection(("127.0.0.1", port), timeout=120) as c:
+        for msg in msgs:
+            payload = json.dumps(msg).encode("utf-8")
+            t0 = time.perf_counter()
+            c.sendall(struct.pack("I", len(payload)) + payload)
+            want = msg["resolution_x"] * msg["resolution_y"] * 3 + 4
+            buf = b""
+            while len(buf) < want:
+                buf += c.recv(want - len(buf))
+            n = struct.unpack("I", buf[-4:])[0]
+            path = b""
+            while len(path) < n:
+                path += c.recv(n - len(path))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            frames.append(buf[:-4])
+    result.update(frames=frames, ms=ms, path=path.decode("ascii"))
+
+
+def phase_apps(dev, model, smi_line):
+    """The interactive apps on the trainer's model, on the card (see the
+    module docstring, item 16)."""
+    import importlib.util
+    import threading
+    import types
+
+    from msgs_torch.apps import network_gui, traj, video_tools, viewer
+    from msgs_torch.apps.render import load_viewing_model, to_uint8, \
+        truncation_mismatches
+    from msgs_torch.data.image import read_png
+    from msgs_torch.kernels import _build
+    from msgs_torch.kernels.rasterize import RasterSettings
+    from msgs_torch.train import loop as L
+    out = os.path.join(model, "apps")
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+
+    # Viewer, headless: the card at x1 and x4, the CPU at x1.
+    renders = []
+    eval_render = L.eval_render
+
+    def recorded(*a, **k):
+        renders.append(eval_render(*a, **k))
+        return renders[-1]
+    L.eval_render = recorded
+    try:
+        for d, s in (("cuda", "1"), ("cuda", "4"), ("cpu", "1")):
+            viewer.main(["-m", model, "--anti_alias", "--reso_scale", s,
+                         "--out_dir", os.path.join(out, f"viewer_{d}_x{s}")]
+                        + (["--device", "cpu"] if d == "cpu" else []))
+    finally:
+        L.eval_render = eval_render
+    png = {k: read_png(os.path.join(out, f"viewer_{k}", "view.png"))
+           for k in ("cuda_x1", "cuda_x4", "cpu_x1")}
+    check(renders[0].image.is_cuda and not renders[2].image.is_cuda,
+          "apps: the viewer rendered on the wrong device")
+    H0, W0 = png["cuda_x1"].shape[:2]
+    check(png["cuda_x1"].max() > 0 and png["cuda_x4"].shape[:2] == (
+        max(H0 // 4 // 16 * 16, 16), max(W0 // 4 // 16 * 16, 16)),
+        "apps: the viewer's x1 image is black or its x4 size is wrong")
+    bad = truncation_mismatches(png["cpu_x1"], png["cuda_x1"],
+                                renders[2].image.numpy())
+    diff = np.abs(png["cpu_x1"].astype(int) - png["cuda_x1"].astype(int))
+    print(f"[apps] viewer view.png {png['cuda_x1'].shape} x1: card vs CPU "
+          f"{int((diff > 0).sum())} pixels differ by 1, {bad} beyond the "
+          f"truncation boundary; x4 {png['cuda_x4'].shape}", flush=True)
+    check(bad == 0, f"apps: the card's view.png differs from the CPU's at "
+          f"{bad} pixels")
+
+    # Viewer, --display: the key loop through a scripted cv2.
+    keys = iter([ord(c) for c in VIEWER_KEYS] + [viewer.ESC])
+    shown = []
+    cv2 = types.ModuleType("cv2")
+    cv2.imshow = lambda name, a: shown.append((name, np.array(a)))
+    cv2.waitKey = lambda delay: next(keys)
+    cv2.destroyAllWindows = lambda: None
+    real_cv2 = sys.modules.get("cv2")
+    sys.modules["cv2"] = cv2
+    try:
+        viewer.main(["-m", model, "--display", "--anti_alias", "--out_dir",
+                     os.path.join(out, "viewer_keys")])
+    finally:
+        if real_cv2 is None:
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = real_cv2
+    n_steps = len(VIEWER_KEYS) + 1
+    check(len(shown) == 3 * n_steps, f"apps: {len(shown)} imshow calls")
+    at_p = shown[3 * VIEWER_KEYS.index("p")][1][..., ::-1]
+    frame = read_png(os.path.join(out, "viewer_keys", "frame.png"))
+    check(np.array_equal(frame, (at_p * 255).astype(np.uint8)),
+          "apps: frame.png is not the frame shown when p was pressed")
+    print(f"[apps] viewer key loop '{VIEWER_KEYS}' then ESC: {n_steps} "
+          f"renders, sizes " + ", ".join(
+              f"{a.shape[1]}x{a.shape[0]}" for n, a in shown
+              if n == "render") + "; frame.png saved", flush=True)
+
+    # traj: the circle's frames over the scale sweep, each synchronised.
+    st, cfg, scene = load_viewing_model(model, None, -1, dev)
+    v0 = scene.train_views[0]
+    poses = traj.circle_trajectory(scene.train_views, TRAJ_FRAMES)
+    settings = RasterSettings(filter_small=True, filter_large=True,
+                              entry_cap=1 << 20)
+    traj.trajectory_frames(st, cfg, v0, poses[:4], settings,
+                           *TRAJ_SCALES)                     # warm-up
+    frames, secs = traj.trajectory_frames(st, cfg, v0, poses, settings,
+                                          *TRAJ_SCALES)
+    check(len(frames) == TRAJ_FRAMES and all(
+        f.shape == (v0.height, v0.width, 3) for f in frames)
+        and frames[0].max() > 0, "apps: trajectory frames")
+    by_scale = collections.defaultdict(list)
+    for i, sec in enumerate(secs):
+        sc = traj.sweep_scale(i, TRAJ_FRAMES, *TRAJ_SCALES)
+        w = max(int(v0.width / sc) // 16 * 16, 16)
+        h = max(int(v0.height / sc) // 16 * 16, 16)
+        by_scale[(round(sc, 3), w, h)].append(sec * 1e3)
+    traj_ms = {f"x{k[0]} {k[1]}x{k[2]}": statistics.median(v)
+               for k, v in sorted(by_scale.items())}
+    print(f"[apps] traj {TRAJ_FRAMES} circle frames x{TRAJ_SCALES[0]:g} to "
+          f"x{TRAJ_SCALES[1]:g}, median host ms per frame (synchronised) "
+          f"at each scale: " + "; ".join(
+              f"{k} {v:.3f}" for k, v in traj_ms.items())
+          + f"; all frames {statistics.median(secs) * 1e3:.3f}; {smi_line}",
+          flush=True)
+    try:
+        video_tools.check_video_writer(os.path.join(out, "x.mp4"))
+        no_encoder = None
+    except RuntimeError as e:
+        no_encoder = str(e)
+    if no_encoder is None:
+        tdir = os.path.join(out, "traj")
+        traj.main(["-m", model, "--anti_alias", "--n_frames",
+                   str(TRAJ_FRAMES), "--out_dir", tdir])
+        times = open(os.path.join(tdir, "frame_times.txt")).read().split()
+        check(len(times) == TRAJ_FRAMES and os.path.getsize(
+            os.path.join(tdir, "trajectory.mp4")) > 0, "apps: traj.main")
+        print("[apps] traj.main wrote trajectory.mp4 and frame_times.txt",
+              flush=True)
+    else:
+        print(f"[apps] traj.main not run end to end: no mp4 encoder imports "
+              f"on this machine ({no_encoder})", flush=True)
+
+    # The network GUI: one client, GUI_REQUESTS requests on a loopback
+    # port, each answered through serve_step.
+    bg = torch.zeros(3, device=dev)
+    cams = []
+
+    def gui_render(cam, scale_mod):
+        cams.append(cam)
+        return L.eval_render(st, cam, cfg=cfg, settings=settings,
+                             bg=bg).image
+    cam0 = v0.camera(1.0)
+    wv = cam0.world_view.cpu().numpy().copy()
+    fp = cam0.full_proj.cpu().numpy().copy()
+    wv[:, 1:3] *= -1
+    fp[:, 1] *= -1
+    msg = {"resolution_x": v0.width, "resolution_y": v0.height,
+           "train": True, "fov_y": v0.fovy, "fov_x": v0.fovx,
+           "z_near": 0.01, "z_far": 100.0, "shs_python": False,
+           "rot_scale_python": False, "keep_alive": False,
+           "scaling_modifier": 1.0,
+           "view_matrix": wv.reshape(-1).tolist(),
+           "view_projection_matrix": fp.reshape(-1).tolist()}
+    network_gui.init("127.0.0.1", 0)
+    result = {}
+    client = threading.Thread(target=gui_client, args=(
+        network_gui._listener.getsockname()[1], [msg] * GUI_REQUESTS,
+        result))
+    client.start()
+    served = 0
+    try:
+        deadline = time.time() + 60
+        while served < GUI_REQUESTS and time.time() < deadline:
+            if network_gui.serve_step(gui_render, scene.source_path, True,
+                                      device=dev):
+                served += 1
+            elif network_gui.conn is None:
+                time.sleep(0.01)
+        client.join(timeout=60)
+    finally:
+        network_gui.disconnect()
+        network_gui._listener.close()
+        network_gui._listener = None
+    check(served == GUI_REQUESTS and not client.is_alive()
+          and len(result.get("frames", ())) == GUI_REQUESTS,
+          f"apps: the GUI served {served} of {GUI_REQUESTS} requests")
+    check(cams[0].world_view.is_cuda, "apps: the GUI camera is not on the card")
+    want = to_uint8(L.eval_render(st, cams[0], cfg=cfg, settings=settings,
+                                  bg=bg).image.cpu().numpy()).tobytes()
+    check(all(f == want for f in result["frames"]) and max(want) > 0,
+          "apps: the GUI's bytes are not eval_render's image")
+    check(result["path"] == scene.source_path, "apps: GUI source path")
+    gui_ms = statistics.median(result["ms"])
+    print(f"[apps] network GUI: {GUI_REQUESTS} requests at "
+          f"{v0.width}x{v0.height}, every frame equal to eval_render's; "
+          f"{gui_ms:.3f} ms per request (median client round trip, "
+          f"{min(result['ms']):.3f} min); {smi_line}", flush=True)
+
+    # video_tools with PNGs: the port's codec, no PIL, imageio or cv2.
+    before = {m for m in ("PIL", "imageio", "cv2") if m in sys.modules}
+    grid = os.path.join(out, "grid.png")
+    tiles = [os.path.join(out, "viewer_cuda_x1", "view.png"),
+             os.path.join(out, "viewer_cpu_x1", "view.png"),
+             os.path.join(out, "viewer_keys", "frame.png")]
+    video_tools.main(["concat", "-i", *tiles, "-o", grid, "--cols", "2"])
+    cams_png = os.path.join(out, "cameras.png")
+    video_tools.main(["visualize_cameras", "-s", scene.source_path, "-o",
+                      cams_png])
+    after = {m for m in ("PIL", "imageio", "cv2") if m in sys.modules}
+    g, c = read_png(grid), read_png(cams_png)
+    check(g.shape == (2 * frame.shape[0], 2 * frame.shape[1], 3)
+          and c.shape == (800, 800, 3), "apps: video_tools outputs")
+    check(after == before, f"apps: video_tools imported {after - before}")
+    installed = {m: importlib.util.find_spec(m) is not None
+                 for m in ("PIL", "imageio", "cv2")}
+    print(f"[apps] video_tools concat {g.shape} and visualize_cameras "
+          f"{c.shape} through the port's PNG codec; installed here: "
+          f"{installed}", flush=True)
+
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_build.launch_counts)
+    print(f"[apps] launches over the phase ({wall:.1f} s wall): {counts}",
+          flush=True)
+    for k in ("scan_f32", "scan_i32", "composite_fwd"):
+        check(counts[k] > 0, f"apps: kernel {k} never launched")
+    check(counts["composite_bwd"] == 0 and counts["composite_bwd_bf16"] == 0,
+          "apps: a backward ran")
+    return counts, dict(wall_s=wall, traj_ms=traj_ms, gui_ms=gui_ms,
+                        viewer_diff_1=int((diff > 0).sum()),
+                        mp4=no_encoder is None)
+
+
 def phase_trainer(dev, smi_line):
     """The MS-GS trainer CLI on the synthetic scene (see the module
     docstring, item 8)."""
@@ -1797,6 +2061,7 @@ def phase_trainer(dev, smi_line):
         check(int(resumed.iteration) == 620,
               f"trainer: resume ended at {int(resumed.iteration)}")
         eval_counts, eval_rec = phase_eval(dev, model, p1, smi_line)
+        apps_counts, apps_rec = phase_apps(dev, model, smi_line)
         dist_counts, dist_rec = phase_dist(dev, scene, common, log, smi_line)
 
         # One train_step of the final state at each coarse level, as the
@@ -1832,7 +2097,7 @@ def phase_trainer(dev, smi_line):
           f"chkpnt600 to 620 ran; {smi_line}", flush=True)
     return counts, dict(times, wall_s=wall, busy=share,
                         median_iteration_ms=statistics.median(steps)), \
-        eval_counts, eval_rec, dist_counts, dist_rec
+        eval_counts, eval_rec, apps_counts, apps_rec, dist_counts, dist_rec
 
 
 # --- [dist]: sharded training on the one card (msgs_torch/dist/) ---------
@@ -2933,8 +3198,8 @@ def main():
     del st
     phase_small_reference(dev)
     phase_train_small(dev)
-    (trainer_counts, trainer_times, eval_counts, eval_rec, dist_counts,
-     dist_rec) = phase_trainer(dev, smi_line)
+    (trainer_counts, trainer_times, eval_counts, eval_rec, apps_counts,
+     apps_rec, dist_counts, dist_rec) = phase_trainer(dev, smi_line)
 
     records = []
     meta = {
@@ -2974,14 +3239,15 @@ def main():
     kernel_recs += list(bwd2_recs.items())
     runs = (serve_counts, rowtight_counts, tools_counts, mxu_counts,
             ablate_counts, bwd2_counts, train_counts, trainer_counts,
-            eval_counts, dist_counts)
+            eval_counts, apps_counts, dist_counts)
     for name, rec in kernel_recs:
         src, rep = meta[name]
-        # launches: over the ten main-path runs, each counted from 0
+        # launches: over the eleven main-path runs, each counted from 0
         # (serving renders, row-tight binning, the gather tools, the
         # pair-math probe, the ablations, the follow-up experiments,
-        # train_step calls, the trainer, the evaluation apps, and every
-        # rank of the sharded runs); then each run's. The follow-up experiments' records
+        # train_step calls, the trainer, the evaluation apps, the
+        # interactive apps, and every rank of the sharded runs); then each
+        # run's. The follow-up experiments' records
         # share the ablation kernels' counters; [bwd2] gives each record
         # the launches of its own runs.
         records.append({
@@ -2999,9 +3265,11 @@ def main():
             "launches_bwd2": bwd2_counts.get(name, 0),
             "launches_rowtight": rowtight_counts.get(name, 0),
             "launches_eval": eval_counts.get(name, 0),
+            "launches_apps": apps_counts.get(name, 0),
             "launches_dist": dist_counts.get(name, 0),
             **({"rowtight": rowtight_rec} if name == "scan_f32" else {}),
             **({"eval": eval_rec} if name == "composite_fwd" else {}),
+            **({"apps": apps_rec} if name == "composite_fwd" else {}),
             **({"dist": dist_rec} if name == "composite_fwd" else {}),
             **({"trainer_shapes": trainer_times[name]}
                if name in trainer_times else {}),

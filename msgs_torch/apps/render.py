@@ -56,6 +56,24 @@ def load_saved_scene(saved: dict, source_path, dev):
                       device=dev)
 
 
+def load_viewing_model(model_path: str, source_path, iteration: int, dev):
+    """(GaussianState, GaussianConfig, SceneData) as the viewer and traj
+    load a model: the PLY by `load_ply_model`, and the scene by
+    `load_scene(source, eval_split=False, resolution=<saved>)` alone, as
+    msgs/apps/viewer.py and traj.py call it. Unlike `load_saved_scene`,
+    the saved images folder, eval split and background are not passed."""
+    from msgs_torch.apps.config import load_cfg
+    from msgs_torch.data.dataset import load_scene
+    saved = load_cfg(model_path)
+    st, cfg, _ = load_ply_model(model_path, iteration,
+                                int(saved.get("sh_degree", 3)), dev)
+    scene = load_scene(source_path or saved.get("source_path", ""),
+                       eval_split=False,
+                       resolution=int(saved.get("resolution", -1)),
+                       device=dev)
+    return st, cfg, scene
+
+
 def background(saved: dict, dev):
     import torch
     white = bool(saved.get("white_background", False))
@@ -66,6 +84,20 @@ def background(saved: dict, dev):
 def to_uint8(img: np.ndarray) -> np.ndarray:
     """The JAX apps' quantisation: clip to [0, 1], scale by 255, truncate."""
     return (np.clip(img, 0, 1) * 255).astype(np.uint8)
+
+
+def truncation_mismatches(a, b, floats_a, tol: float = 1e-5) -> int:
+    """Pixels at which uint8 images a and b differ by more than `to_uint8`
+    of two renders within tol of each other can: by more than 1, or by 1
+    where floats_a (the [0, 1] image a was quantised from) ·255 lies
+    farther than tol·255 from an integer, the truncation's boundary."""
+    a, b = np.asarray(a).astype(np.int32), np.asarray(b).astype(np.int32)
+    if a.shape != b.shape:
+        raise ValueError(f"shapes {a.shape} and {b.shape}")
+    diff = np.abs(a - b)
+    v = np.clip(np.asarray(floats_a, np.float64), 0, 1) * 255
+    near = np.abs(v - np.round(v)) <= tol * 255
+    return int(((diff > 1) | ((diff == 1) & ~near)).sum())
 
 
 def render_sets(args):

@@ -17,10 +17,13 @@ so the host never waits on the card each step; ground-truth images are
 cached on the device per (view, scale).
 
 Beyond the JAX flags: `--device` (default: the CUDA device) and
-`--dist_backend`. The network GUI is not ported, and without
-`--disable_gui` the trainer says so and carries on. The final evaluation
-adds LPIPS when its weight file exists (msgs_torch/eval/lpips.py), as the
-JAX trainer does.
+`--dist_backend`. Without `--disable_gui` the trainer listens on
+--ip/--port for the SIBR remote viewer (msgs_torch/apps/network_gui.py)
+and serves it renders of the live model at the head of an iteration
+(every iteration while a client is connected, else every 50th); under
+--mesh it does not, since the live model is sharded over the ranks. The
+final evaluation adds LPIPS when its weight file exists
+(msgs_torch/eval/lpips.py), as the JAX trainer does.
 
 Sharded training (`--mesh G T`, msgs_torch/dist/) runs one process a mesh
 cell, started by torchrun:
@@ -53,6 +56,7 @@ import math
 import os
 import random
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -115,7 +119,7 @@ def build_parser():
                    help="torch.autograd.set_detect_anomaly(True)")
     p.add_argument("--no_tensorboard", action="store_true")
     p.add_argument("--ip", type=str, default="127.0.0.1",
-                   help="network GUI host (not ported)")
+                   help="network GUI host (SIBR remote viewer)")
     p.add_argument("--port", type=int, default=6009)
     p.add_argument("--disable_gui", action="store_true")
     p.add_argument("--profile_steps", type=str, default=None,
@@ -260,9 +264,17 @@ def training(args, on_iteration=None):
         from msgs_torch.dist import collectives as X
         tb_histograms = bool(X.broadcast(
             torch.tensor(tb_histograms, device=dev), mesh.world))
-    if not args.disable_gui:
-        print("network GUI disabled: not ported to msgs_torch "
-              "(training carries on without it)")
+    gui = None
+    if not args.disable_gui and mesh is not None:
+        say("network GUI disabled: under --mesh the live model is sharded "
+            "over the ranks")
+    elif not args.disable_gui:
+        from msgs_torch.apps import network_gui
+        try:
+            network_gui.init(args.ip, args.port)
+            gui = network_gui
+        except OSError as e:
+            print(f"network GUI disabled: {e}")
 
     say(f"Loading scene {args.source_path}")
     scene = load_scene(args.source_path, images_dir=args.images,
@@ -391,6 +403,10 @@ def training(args, on_iteration=None):
         a, b = args.profile_steps.split(":")
         profile_range = (int(a), int(b))
 
+    def gui_render(cam, scale_mod):
+        out = L.eval_render(state, cam, cfg=cfg, settings=settings, bg=bg)
+        return out.image
+
     def structural(name, fn, **rec):
         """Run one structural step; log the live count around it."""
         before = int(state.gaussians.num_live)
@@ -415,6 +431,14 @@ def training(args, on_iteration=None):
             prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
             prof = None
             print(f"[profile] trace written to {out_dir}")
+
+        # Live-view pump; a client that drops must not stop training.
+        if gui is not None and (gui.conn is not None or iteration % 50 == 1):
+            try:
+                gui.serve_step(gui_render, args.source_path, True,
+                               device=dev)
+            except Exception:
+                traceback.print_exc()
 
         # SH warmup every 1000 iterations.
         if iteration % 1000 == 0:

@@ -1040,3 +1040,118 @@ def test_composite_builds_fit(dev, entry, arg, ctas):
     info = _build.kernel_info(entry, arg)
     assert info["stack_bytes"] == 0, info
     assert info["ctas_per_sm"] >= ctas, info
+
+
+@pytest.fixture
+def viewing_model(dev, tmp_path):
+    """A model dir whose PLY is the initial cloud of a small synthetic
+    scene (4 + 1 views at 64×48, 500 Gaussians), rendered on the card."""
+    import argparse
+
+    from msgs_torch.apps.config import save_cfg
+    from msgs_torch.data.dataset import load_scene
+    from msgs_torch.data.synthetic import make_scene
+    from msgs_torch.model.gaussians import GaussianConfig, create_from_points
+    from msgs_torch.train.checkpoint import save_ply_snapshot
+    scene, model = str(tmp_path / "scene"), str(tmp_path / "model")
+    make_scene(scene, n_views=4, n_test=1, width=64, height=48,
+               n_gaussians=500, device=dev, quiet=True)
+    sc = load_scene(scene, eval_split=False, device="cpu")
+    st = create_from_points(GaussianConfig(sh_degree=3, capacity=1024),
+                            sc.points, sc.colors, device="cpu")
+    ply = tmp_path / "model" / "point_cloud" / "iteration_1"
+    ply.mkdir(parents=True)
+    save_ply_snapshot(str(ply / "point_cloud.ply"), st)
+    save_cfg(model, argparse.Namespace(source_path=scene, sh_degree=3,
+                                       resolution=-1))
+    return model
+
+
+def test_viewer_headless_on_card_matches_cpu(dev, viewing_model, tmp_path,
+                                             monkeypatch):
+    """viewer.main headless on the card and on the CPU: view.png decodes
+    equal, but for 1 at the truncation boundary."""
+    from msgs_torch.apps import viewer
+    from msgs_torch.apps.render import truncation_mismatches
+    from msgs_torch.data.image import read_png
+    from msgs_torch.train import loop as L
+    outs = []
+    orig = L.eval_render
+
+    def recorded(*a, **k):
+        outs.append(orig(*a, **k))
+        return outs[-1]
+    monkeypatch.setattr(L, "eval_render", recorded)
+    pngs = []
+    for d in ("cuda", "cpu"):
+        out = str(tmp_path / d)
+        viewer.main(["-m", viewing_model, "--anti_alias", "--out_dir", out,
+                     "--device", d])
+        pngs.append(read_png(out + "/view.png"))
+    assert outs[0].image.is_cuda and pngs[0].shape == (48, 64, 3)
+    assert pngs[0].max() > 0
+    assert truncation_mismatches(pngs[1], pngs[0],
+                                 outs[1].image.numpy()) == 0
+
+
+def test_gui_frame_on_card_is_eval_render(dev, viewing_model):
+    """One SIBR request served from the card through serve_step: the bytes
+    are eval_render's image of the camera the request made, quantised."""
+    import json
+    import socket
+    import struct
+    import threading
+
+    from msgs_torch.apps import network_gui as gui
+    from msgs_torch.apps.render import load_viewing_model
+    from msgs_torch.train import loop as L
+    st, cfg, scene = load_viewing_model(viewing_model, None, -1, dev)
+    settings = RasterSettings(entry_cap=1 << 16)
+    view = scene.train_views[1]
+    cam = make_camera(view.R, view.T, view.fovx, view.fovy, 64, 48,
+                      device=dev)
+    wv = cam.world_view.cpu().numpy().copy()
+    fp = cam.full_proj.cpu().numpy().copy()
+    wv[:, 1:3] *= -1
+    fp[:, 1] *= -1
+    msg = json.dumps({
+        "resolution_x": 64, "resolution_y": 48, "train": True,
+        "fov_y": view.fovy, "fov_x": view.fovx, "z_near": 0.01,
+        "z_far": 100.0, "shs_python": False, "rot_scale_python": False,
+        "keep_alive": False, "scaling_modifier": 1.0,
+        "view_matrix": wv.reshape(-1).tolist(),
+        "view_projection_matrix": fp.reshape(-1).tolist()}).encode()
+    got, cams = {}, []
+
+    def client(port):
+        with socket.create_connection(("127.0.0.1", port), timeout=60) as c:
+            c.sendall(struct.pack("I", len(msg)) + msg)
+            buf = b""
+            while len(buf) < 64 * 48 * 3 + 4:
+                buf += c.recv(1 << 16)
+            got["img"] = buf[:64 * 48 * 3]
+
+    def render_fn(c, scale_mod):
+        cams.append(c)
+        return L.eval_render(st, c, cfg=cfg, settings=settings).image
+
+    gui.init("127.0.0.1", 0)
+    t = threading.Thread(target=client,
+                         args=(gui._listener.getsockname()[1],))
+    t.start()
+    try:
+        ok = False
+        for _ in range(500):
+            ok = gui.serve_step(render_fn, "/scene", True, device=dev)
+            if ok:
+                break
+            t.join(timeout=0.02)
+        t.join(timeout=60)
+    finally:
+        gui.disconnect()
+        gui._listener.close()
+        gui._listener = None
+    assert ok and not t.is_alive() and cams[0].world_view.is_cuda
+    want = gui.frame_bytes(L.eval_render(st, cams[0], cfg=cfg,
+                                         settings=settings).image)
+    assert got["img"] == want and max(want) > 0

@@ -105,6 +105,22 @@ def train_tiny(package: str, scene: str, out: str, iterations: int = 10):
                                "--no_tensorboard"])
 
 
+def assert_uint8_match(a, b, floats_a=None, tol=1e-5, what=""):
+    """Two uint8 images are equal, or, with `floats_a` (the [0, 1] image a
+    was quantised from by truncation), differ by at most 1 and only where
+    that value·255 lies within tol·255 of an integer, the truncation's
+    boundary."""
+    from msgs_torch.apps.render import truncation_mismatches
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.shape == b.shape, (what, a.shape, b.shape)
+    if floats_a is None:
+        diff = a != b
+        assert not diff.any(), f"{what}: {int(diff.sum())} pixels"
+        return
+    bad = truncation_mismatches(a, b, floats_a, tol)
+    assert not bad, f"{what}: {bad} pixels"
+
+
 def assert_pngs_match(dir_a: str, dir_b: str, floats_a=None):
     """The PNGs of two folders decode equal, file for file. With
     `floats_a` (the [0, 1] images folder a was quantised from, in file
@@ -116,14 +132,7 @@ def assert_pngs_match(dir_a: str, dir_b: str, floats_a=None):
     names = sorted(os.listdir(dir_a))
     assert names == sorted(os.listdir(dir_b)) and names
     for i, name in enumerate(names):
-        a = read_png(os.path.join(dir_a, name)).astype(np.int32)
-        b = read_png(os.path.join(dir_b, name)).astype(np.int32)
-        assert a.shape == b.shape, name
-        diff = np.abs(a - b)
-        if floats_a is None:
-            assert not diff.any(), f"{name}: {int((diff > 0).sum())} pixels"
-            continue
-        v = np.clip(np.asarray(floats_a[i], np.float64), 0, 1) * 255
-        near = np.abs(v - np.round(v)) <= 1e-5 * 255
-        bad = (diff > 1) | ((diff == 1) & ~near)
-        assert not bad.any(), f"{name}: {int(bad.sum())} pixels"
+        assert_uint8_match(
+            read_png(os.path.join(dir_a, name)),
+            read_png(os.path.join(dir_b, name)),
+            None if floats_a is None else floats_a[i], what=name)
