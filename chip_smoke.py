@@ -211,6 +211,26 @@ Builds the CUDA kernels from msgs_torch/csrc (into build/msgs_torch/), then:
      the median round trip printed. video_tools concat and
      visualize_cameras on PNGs, importing none of PIL, imageio and cv2.
 
+ 17. io: inside the trainer's directory, after [apps]. The native
+     COLMAP/PLY library (msgs_torch/native/colmap_io.cpp) is built with g++
+     into build/msgs_torch/native/; if it does not build the run fails with
+     the compiler's message (the struct readers' fallback does not pass
+     here). A COLMAP binary model made from IO_SEED with numpy (IO_POINTS
+     points with track lengths 3-6, IO_IMAGES images of IO_KEYPOINTS
+     keypoints) is read by the native readers and by the struct readers:
+     equal within tests/test_native_io.py's tolerances (xyz and err atol
+     1e-6, rgb exact, qvec and tvec allclose), and equal to what was
+     written (the native path rounds xyz and err through float32);
+     load_sparse must take the native path. read_ply_f32 on the trainer's
+     iteration-1100 PLY equals ply.read_ply. A x1 render of the first
+     train view (kernels 1-3; counters zeroed before, read after) feeds
+     add_large_gaussians_backproject on the card and on the CPU: equal
+     touched rows, n_inserted, integer and pixel-size fields, float fields
+     within 1e-6·max|x| + 1e-7 (a block within 4 ulp of the threshold may
+     flip; they are counted); the render after the insert is finite with
+     no overflow. Read times, n_inserted and the phase's seconds are
+     printed.
+
 Any failed check raises, and the script exits non-zero without its result
 lines. On success the second-to-last lines are the nvidia-smi line and one
 JSON object describing every kernel; the last line is the device record.
@@ -296,6 +316,13 @@ STEP_REL = 1e-5
 BF16_GRAD_REL = 1e-3
 # chip_smoke.py's own argument for a torchrun rank of [dist] part 4.
 DIST_TRAINER_FLAG = "--dist-trainer-rank"
+# [io]: the COLMAP model's seed and size (the order of a large SfM
+# reconstruction), and the level the back-projection tags its rows with.
+IO_SEED = 0
+IO_POINTS = 1_000_000
+IO_IMAGES = 300
+IO_KEYPOINTS = 4000
+IO_LVL = 2
 
 
 def fail(msg: str):
@@ -2062,6 +2089,7 @@ def phase_trainer(dev, smi_line):
               f"trainer: resume ended at {int(resumed.iteration)}")
         eval_counts, eval_rec = phase_eval(dev, model, p1, smi_line)
         apps_counts, apps_rec = phase_apps(dev, model, smi_line)
+        io_counts, io_rec = phase_io(dev, state, pcfg, sc, model, smi_line)
         dist_counts, dist_rec = phase_dist(dev, scene, common, log, smi_line)
 
         # One train_step of the final state at each coarse level, as the
@@ -2097,7 +2125,259 @@ def phase_trainer(dev, smi_line):
           f"chkpnt600 to 620 ran; {smi_line}", flush=True)
     return counts, dict(times, wall_s=wall, busy=share,
                         median_iteration_ms=statistics.median(steps)), \
-        eval_counts, eval_rec, apps_counts, apps_rec, dist_counts, dist_rec
+        eval_counts, eval_rec, apps_counts, apps_rec, dist_counts, \
+        dist_rec, io_counts, io_rec
+
+
+# --- [io]: the native COLMAP/PLY readers and the back-projection insert --
+
+def colmap_model(d, seed: int, n_points: int, n_images: int, n_kp: int):
+    """A COLMAP binary model in `d` made from `seed` with numpy: one PINHOLE
+    camera; `n_points` points with track lengths 3-6; `n_images` images of
+    `n_kp` keypoints, half of them tied to a point. Returns the points'
+    (xyz, rgb, err) as written."""
+    import struct
+    rng = np.random.default_rng(seed)
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "cameras.bin"), "wb") as f:
+        f.write(struct.pack("<Q", 1))
+        f.write(struct.pack("<iiQQ4d", 1, 1, 1600, 1200, 1400.0, 1400.0,
+                            800.0, 600.0))
+    head = np.zeros(n_points, np.dtype([
+        ("id", "<u8"), ("xyz", "<f8", (3,)), ("rgb", "u1", (3,)),
+        ("err", "<f8"), ("track_len", "<u8")]))     # packed: 51 bytes
+    head["id"] = np.arange(1, n_points + 1)
+    head["xyz"] = rng.normal(0, 2, (n_points, 3))
+    head["rgb"] = rng.integers(0, 256, (n_points, 3), dtype=np.uint8)
+    head["err"] = rng.uniform(0, 2, n_points)
+    head["track_len"] = tl = rng.integers(3, 7, n_points)
+    track = np.stack([rng.integers(1, n_images + 1, (n_points, 6)),
+                      rng.integers(0, n_kp, (n_points, 6))],
+                     -1).astype("<i4")
+    # Each record padded to the longest track, then the padding dropped.
+    rec = np.concatenate([head.view(np.uint8).reshape(n_points, -1),
+                          track.view(np.uint8).reshape(n_points, -1)], 1)
+    keep = (np.arange(rec.shape[1])[None, :]
+            < (head.dtype.itemsize + 8 * tl)[:, None])
+    with open(os.path.join(d, "points3D.bin"), "wb") as f:
+        f.write(struct.pack("<Q", n_points))
+        f.write(rec[keep].tobytes())
+    kp = np.zeros(n_kp, np.dtype([("xy", "<f8", (2,)), ("point", "<i8")]))
+    with open(os.path.join(d, "images.bin"), "wb") as f:
+        f.write(struct.pack("<Q", n_images))
+        for i in range(n_images):
+            q = rng.normal(size=4)
+            f.write(struct.pack("<i4d3di", i + 1, *(q / np.linalg.norm(q)),
+                                *rng.normal(0, 3, 3), 1))
+            f.write(f"img_{i:05d}.jpg".encode() + b"\0")
+            kp["xy"] = rng.uniform(0, 1600, (n_kp, 2))
+            kp["point"] = np.where(rng.uniform(size=n_kp) < 0.5, -1,
+                                   rng.integers(1, n_points + 1, n_kp))
+            f.write(struct.pack("<Q", n_kp))
+            f.write(kp.tobytes())
+    return head["xyz"], head["rgb"], head["err"]
+
+
+def to_cpu(nt):
+    """A NamedTuple of tensors (a state, a camera) with every tensor on
+    the CPU."""
+    return nt._replace(**{k: v.cpu() for k, v in nt._asdict().items()
+                          if torch.is_tensor(v)})
+
+
+def near_threshold_blocks(acc, block: int, threshold: float,
+                          ulps: int = 4) -> int:
+    """Blocks whose mean coverage (float64) lies within `ulps` float32 ulp
+    of the threshold: the two devices may put them on either side."""
+    H, W = acc.shape
+    Hb, Wb = H // block, W // block
+    m = acc[:Hb * block, :Wb * block].astype(np.float64).reshape(
+        Hb, block, Wb, block).mean(axis=(1, 3))
+    ulp = float(np.spacing(np.float32(threshold)))
+    return int((np.abs(m - threshold) <= ulps * ulp).sum())
+
+
+def phase_io(dev, state, cfg, scene, model, smi_line):
+    """The native readers and the back-projection insert (see the module
+    docstring, item 17)."""
+    from msgs_torch.data import colmap, native_io, ply
+    from msgs_torch.kernels import _build
+    from msgs_torch.kernels.rasterize import RasterSettings
+    from msgs_torch.model.gaussians import GaussianState
+    from msgs_torch.ms.backproject import add_large_gaussians_backproject
+    from msgs_torch.train import loop as L
+    t_phase = time.perf_counter()
+
+    # 1. The library builds here, or the run fails with g++'s message.
+    t0 = time.perf_counter()
+    lib = native_io.get_lib()
+    check(lib is not None, f"io: the native library did not build: "
+          f"{native_io.build_error}")
+    print(f"[io] native library {native_io.library_path()} ready in "
+          f"{time.perf_counter() - t0:.2f} s (g++ "
+          f"{' '.join(native_io.CXX_FLAGS)})", flush=True)
+
+    # 2. A large COLMAP model, read both ways and through load_sparse.
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        xyz, rgb, err = colmap_model(d, IO_SEED, IO_POINTS, IO_IMAGES,
+                                     IO_KEYPOINTS)
+        t_write = time.perf_counter() - t0
+        pts_path = os.path.join(d, "points3D.bin")
+        img_path = os.path.join(d, "images.bin")
+        mb = (os.path.getsize(pts_path) + os.path.getsize(img_path)) / 1e6
+        t0 = time.perf_counter()
+        npts = native_io.read_points3d_bin(pts_path)
+        t_np = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nimg = native_io.read_images_bin(img_path)
+        t_ni = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        spts = colmap.read_points3d_binary(pts_path)
+        t_sp = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        simg = colmap.read_images_binary(img_path)
+        t_si = time.perf_counter() - t0
+        check(npts is not None and nimg is not None,
+              "io: a native reader refused the model")
+        # tests/test_native_io.py's tolerances, and the exact forms.
+        check(np.allclose(npts[0], spts[0], rtol=0, atol=1e-6)
+              and np.array_equal(npts[1], spts[1])
+            and np.allclose(npts[2], spts[2], rtol=0, atol=1e-6),
+            "io: native points differ from the struct reader's")
+        check(np.array_equal(npts[0], xyz.astype(np.float32).astype(
+            np.float64)) and np.array_equal(spts[0], xyz)
+            and np.array_equal(npts[1], rgb)
+            and np.array_equal(npts[2], err.astype(np.float32).astype(
+                np.float64)), "io: points differ from what was written")
+        sid = sorted(simg)
+        check(list(nimg["image_id"]) == sid
+              and np.allclose(nimg["qvec"], [simg[i].qvec for i in sid])
+              and np.allclose(nimg["tvec"], [simg[i].tvec for i in sid])
+              and nimg["names"] == [simg[i].name for i in sid]
+              and nimg["names"][0] == "img_00000.jpg",
+              "io: native images differ from the struct reader's")
+        struct_calls = []
+        readers = (colmap.read_points3d_binary, colmap.read_images_binary)
+
+        def counted(fn):
+            def wrapped(*a, **k):
+                struct_calls.append(fn.__name__)
+                return fn(*a, **k)
+            return wrapped
+        colmap.read_points3d_binary, colmap.read_images_binary = map(
+            counted, readers)
+        try:
+            t0 = time.perf_counter()
+            cams, imgs, lxyz, lrgb = colmap.load_sparse(d)
+            t_load = time.perf_counter() - t0
+        finally:
+            colmap.read_points3d_binary, colmap.read_images_binary = readers
+        check(not struct_calls and np.array_equal(lxyz, npts[0])
+              and np.array_equal(lrgb, rgb) and len(imgs) == IO_IMAGES
+              and cams[1].model == "PINHOLE",
+              f"io: load_sparse did not take the native path "
+              f"(struct readers called: {struct_calls})")
+    print(f"[io] COLMAP model (seed {IO_SEED}): {IO_POINTS:,} points, "
+          f"tracks 3-6, {IO_IMAGES} images x {IO_KEYPOINTS} keypoints, "
+          f"{mb:.1f} MB written in {t_write:.2f} s; native read points "
+          f"{t_np * 1e3:.1f} ms, images {t_ni * 1e3:.1f} ms; struct read "
+          f"points {t_sp * 1e3:.1f} ms, images {t_si * 1e3:.1f} ms; "
+          f"load_sparse (native) {t_load * 1e3:.1f} ms; equal within "
+          f"tests/test_native_io.py's tolerances", flush=True)
+
+    # 3. read_ply_f32 on the trainer's PLY against ply.read_ply.
+    path = os.path.join(model, f"point_cloud/iteration_{TRAIN_ITERS}/"
+                               "point_cloud.ply")
+    t0 = time.perf_counter()
+    fast = native_io.read_ply_f32(path)
+    t_fast = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = ply.read_ply(path)
+    t_plain = time.perf_counter() - t0
+    check(fast is not None and list(fast) == list(plain) and all(
+        np.array_equal(fast[k], plain[k].astype(np.float32)) for k in plain),
+        "io: read_ply_f32 differs from ply.read_ply")
+    print(f"[io] read_ply_f32 on the trainer's PLY ({len(plain['x']):,} "
+          f"rows, {len(plain)} properties): {t_fast * 1e3:.1f} ms, "
+          f"ply.read_ply {t_plain * 1e3:.1f} ms, equal", flush=True)
+
+    # 4. The back-projection insert on a x1 render of a train view: the
+    # card against the CPU on the same inputs, then a render after it.
+    settings = RasterSettings(filter_small=True, filter_large=True,
+                              entry_cap=1 << 21, image_grads_only=True)
+    cam = scene.train_views[0].camera(1.0)
+    bg = torch.zeros(3, device=dev)
+    st = state.gaussians
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    out = L.eval_render(st, cam, cfg=cfg, settings=settings, reso_lvl=0,
+                        bg=bg)
+    check(int(out.overflow) == 0, "io: render overflow")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new, touched, n_ins = add_large_gaussians_backproject(
+        st, cam, out.acc_pixel_size, out.depth, out.image, IO_LVL)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    after = L.eval_render(new, cam, cfg=cfg, settings=settings, reso_lvl=0,
+                          bg=bg)
+    torch.cuda.synchronize()
+    counts = dict(_build.launch_counts)
+    t0 = time.perf_counter()
+    cnew, ctouched, cn_ins = add_large_gaussians_backproject(
+        to_cpu(st), to_cpu(cam), out.acc_pixel_size.cpu(), out.depth.cpu(),
+        out.image.cpu(), IO_LVL)
+    t_cpu = time.perf_counter() - t0
+    acc = out.acc_pixel_size.cpu().numpy()
+    ties = near_threshold_blocks(acc, 4, 1.0)
+    same = torch.equal(touched.cpu(), ctouched)
+    worst = {}
+    if same:
+        check(int(n_ins) == int(cn_ins), "io: n_inserted card != CPU")
+        for k in GaussianState._fields:
+            a, b = getattr(new, k).cpu(), getattr(cnew, k)
+            if k in ("live", "target_reso_lvl", "base_mask",
+                     "max_pixel_sizes", "min_pixel_sizes") \
+                    or not b.is_floating_point():
+                check(torch.equal(a, b), f"io: backproject {k} card != CPU")
+                continue
+            tol = 1e-6 * float(b.abs().max()) + 1e-7
+            worst[k] = float((a - b).abs().max())
+            check(worst[k] <= tol, f"io: backproject {k} card vs CPU "
+                  f"{worst[k]:.3e} > {tol:.3e}")
+    else:       # only blocks at the threshold may flip
+        check(ties > 0 and abs(int(n_ins) - int(cn_ins)) <= ties,
+              f"io: backproject touched rows differ card vs CPU with "
+              f"{ties} blocks at the threshold")
+    check(bool(torch.isfinite(after.image).all())
+          and int(after.overflow) == 0,
+          "io: the render after the insert is not finite or overflowed")
+    for k in ("scan_f32", "scan_i32", "composite_fwd"):
+        check(counts[k] > 0, f"io: kernel {k} never launched")
+    wall = time.perf_counter() - t_phase
+    print(f"[io] backproject on a x1 train view ({cam.width}x{cam.height}, "
+          f"blocks of 4, "
+          f"threshold 1.0, lvl {IO_LVL}): n_inserted {int(n_ins)} on the "
+          f"card, {int(cn_ins)} on the CPU; live {int(st.num_live)} -> "
+          f"{int(new.num_live)} of {st.live.shape[0]}; card "
+          f"{t_card * 1e3:.1f} ms, CPU {t_cpu * 1e3:.1f} ms (host clock); "
+          f"{'equal' if same else 'touched differs'} ({ties} blocks within "
+          f"4 ulp of the threshold; float fields max |d| "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+          + f"); the render after it finite, no overflow; launches "
+          f"{counts}; the phase {wall:.1f} s; {smi_line}", flush=True)
+    return counts, dict(wall_s=wall, points=IO_POINTS,
+                        native_points_ms=t_np * 1e3,
+                        native_images_ms=t_ni * 1e3,
+                        struct_points_ms=t_sp * 1e3,
+                        struct_images_ms=t_si * 1e3,
+                        load_sparse_ms=t_load * 1e3,
+                        ply_native_ms=t_fast * 1e3,
+                        ply_plain_ms=t_plain * 1e3,
+                        backproject_inserted=int(n_ins),
+                        backproject_card_ms=t_card * 1e3,
+                        backproject_cpu_ms=t_cpu * 1e3)
 
 
 # --- [dist]: sharded training on the one card (msgs_torch/dist/) ---------
@@ -3199,7 +3479,8 @@ def main():
     phase_small_reference(dev)
     phase_train_small(dev)
     (trainer_counts, trainer_times, eval_counts, eval_rec, apps_counts,
-     apps_rec, dist_counts, dist_rec) = phase_trainer(dev, smi_line)
+     apps_rec, dist_counts, dist_rec, io_counts,
+     io_rec) = phase_trainer(dev, smi_line)
 
     records = []
     meta = {
@@ -3239,15 +3520,15 @@ def main():
     kernel_recs += list(bwd2_recs.items())
     runs = (serve_counts, rowtight_counts, tools_counts, mxu_counts,
             ablate_counts, bwd2_counts, train_counts, trainer_counts,
-            eval_counts, apps_counts, dist_counts)
+            eval_counts, apps_counts, dist_counts, io_counts)
     for name, rec in kernel_recs:
         src, rep = meta[name]
-        # launches: over the eleven main-path runs, each counted from 0
+        # launches: over the twelve main-path runs, each counted from 0
         # (serving renders, row-tight binning, the gather tools, the
         # pair-math probe, the ablations, the follow-up experiments,
         # train_step calls, the trainer, the evaluation apps, the
-        # interactive apps, and every rank of the sharded runs); then each
-        # run's. The follow-up experiments' records
+        # interactive apps, every rank of the sharded runs, and the I/O
+        # phase's renders); then each run's. The follow-up experiments' records
         # share the ablation kernels' counters; [bwd2] gives each record
         # the launches of its own runs.
         records.append({
@@ -3267,10 +3548,12 @@ def main():
             "launches_eval": eval_counts.get(name, 0),
             "launches_apps": apps_counts.get(name, 0),
             "launches_dist": dist_counts.get(name, 0),
+            "launches_io": io_counts.get(name, 0),
             **({"rowtight": rowtight_rec} if name == "scan_f32" else {}),
             **({"eval": eval_rec} if name == "composite_fwd" else {}),
             **({"apps": apps_rec} if name == "composite_fwd" else {}),
             **({"dist": dist_rec} if name == "composite_fwd" else {}),
+            **({"io": io_rec} if name == "composite_fwd" else {}),
             **({"trainer_shapes": trainer_times[name]}
                if name in trainer_times else {}),
             **rec.get("extra", {})})

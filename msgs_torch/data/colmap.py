@@ -1,8 +1,8 @@
 """COLMAP sparse-reconstruction parsers (binary + text).
 
-Port of msgs/data/colmap.py, its pure-Python struct readers only (the JAX
-package's ctypes fast path, msgs/data/native_io.py, is not ported). As there,
-an equivalent of the reference loader (scene/colmap_loader.py:83-294):
+Port of msgs/data/colmap.py: `load_sparse` reads the binary files through
+the native C++ readers (msgs_torch/data/native_io.py) when their library
+builds, else through the struct readers here. As there, an equivalent of the reference loader (scene/colmap_loader.py:83-294):
 cameras / images / points3D in both .bin and .txt flavors, PINHOLE and
 SIMPLE_PINHOLE models (the only ones the reference accepts,
 dataset_readers.py:88-98). Implemented directly against the public COLMAP
@@ -144,12 +144,29 @@ def read_points3d_text(path: str):
 
 def load_sparse(sparse_dir: str):
     """Load (cameras, images, points_xyz, points_rgb), preferring the binary
-    files."""
+    files, read by the native readers (msgs_torch/data/native_io.py) when
+    their library built, else by the struct readers."""
     if os.path.exists(os.path.join(sparse_dir, "cameras.bin")):
+        from msgs_torch.data import native_io
         cams = read_cameras_binary(os.path.join(sparse_dir, "cameras.bin"))
-        imgs = read_images_binary(os.path.join(sparse_dir, "images.bin"))
-        xyz, rgb, _ = read_points3d_binary(
+        imgs_native = native_io.read_images_bin(
+            os.path.join(sparse_dir, "images.bin"))
+        if imgs_native is not None:
+            imgs = {
+                int(iid): ColmapImage(
+                    int(iid), imgs_native["qvec"][i], imgs_native["tvec"][i],
+                    int(imgs_native["camera_id"][i]),
+                    imgs_native["names"][i])
+                for i, iid in enumerate(imgs_native["image_id"])}
+        else:
+            imgs = read_images_binary(os.path.join(sparse_dir, "images.bin"))
+        pts_native = native_io.read_points3d_bin(
             os.path.join(sparse_dir, "points3D.bin"))
+        if pts_native is not None:
+            xyz, rgb, _ = pts_native
+        else:
+            xyz, rgb, _ = read_points3d_binary(
+                os.path.join(sparse_dir, "points3D.bin"))
     else:
         cams = read_cameras_text(os.path.join(sparse_dir, "cameras.txt"))
         imgs = read_images_text(os.path.join(sparse_dir, "images.txt"))
