@@ -1,0 +1,6 @@
+"""Share of the traced training window in which no device operation ran."""
+from benchmark.layers import idle_pct
+
+
+def read(ctx):
+    return idle_pct(ctx, "train")
