@@ -1912,7 +1912,7 @@ def phase_trainer(dev, smi_line):
     from msgs_torch.kernels import scan
     from msgs_torch.kernels.rasterize import RasterSettings
     from msgs_torch.model.gaussians import GaussianConfig
-    from msgs_torch.profile_render import _device_busy_ms
+    from msgs_torch.tools import _device_busy_ms
     from msgs_torch.train.checkpoint import load_ply_snapshot
     from msgs_torch.train.loop import eval_render, train_step
     from msgs_torch.train.optimizer import OptimParams
@@ -2620,7 +2620,7 @@ def phase_dist(dev, scene, trainer_common, trainer_log, smi_line):
 
     from msgs_torch.dist.dryrun import check_records
     from msgs_torch.dist.launch import run_ranks
-    from msgs_torch.profile_render import _device_busy_ms
+    from msgs_torch.tools import _device_busy_ms
     t_phase = time.perf_counter()
     counts = {}
     card = torch.device("cuda", 0)
@@ -2819,7 +2819,7 @@ def phase_tools(dev, st, smi_line):
     from msgs_torch.kernels.gather import gather_rows, gather_rows_plain
     from msgs_torch.kernels.preprocess import preprocess
     from msgs_torch.kernels.rasterize import feature_table, gather_payload
-    from msgs_torch.profile_render import _device_busy_ms
+    from msgs_torch.tools import _device_busy_ms
     from msgs_torch.tools import exp_gather, exp_gather2, gather_bytes
     torch.cuda.synchronize()
     _build.reset_launch_counts()
@@ -3417,7 +3417,7 @@ def phase_bwd2(dev, small, smi_line):
 
 
 def bench_scene(seed: int = 0):
-    from msgs_torch.profile_render import bench_scene as scene
+    from msgs_torch.tools import bench_scene as scene
     return scene(seed)
 
 

@@ -41,8 +41,11 @@ rank; the default on CUDA) or gloo (ranks may share a card; the default on
 host's cards; `--device cuda:N` puts every rank on card N (gloo only).
 `--multihost` spreads the ranks over hosts: LOCAL_RANK picks the card.
 `--profile_steps A:B` traces iterations [A, B) with torch.profiler into
-<model_path>/profile/; `--detect_anomaly` turns on
-torch.autograd.set_detect_anomaly.
+<model_path>/profile/trace.json; the trace carries the stage spans
+(`msgs.train_step`, `msgs.preprocess`, `msgs.binning` and its children,
+...; msgs_torch/trace.py), which `python3 -m benchmark.spans
+<model_path>/profile/trace.json` tabulates per step. `--detect_anomaly`
+turns on torch.autograd.set_detect_anomaly.
 
 Besides the JAX trainer's records, train_log.jsonl gets one record per
 structural event (densify, reset, grow, insert) with the live count before

@@ -32,6 +32,7 @@ import torch
 from msgs_torch.kernels import _build
 from msgs_torch.kernels.binning import SUB
 from msgs_torch.kernels.preprocess import ALPHA_MAX, ALPHA_MIN, T_EPS, TILE
+from msgs_torch.trace import span
 
 NPIX = TILE * TILE     # 256 pixels per tile
 NFEAT = 12             # payload feature columns (11 used + pad)
@@ -453,17 +454,18 @@ class _Composite(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_out):
-        payload, first, n_sub, out = ctx.saved_tensors
-        tiles, tiles_x, width, height, image_only, bwd_bf16, plain = \
-            ctx.static
-        args = (first, n_sub, out, g_out.contiguous(), tiles, tiles_x,
-                width, height, image_only)
-        ref, cuda = ((composite_bwd_bf16_reference, _composite_bwd_bf16_cuda)
-                     if bwd_bf16 else
-                     (composite_bwd_reference, _composite_bwd_cuda))
-        dpay = ref(payload, *args) if plain else _on(payload, cuda, ref,
-                                                     *args)
-        return (dpay,) + (None,) * 9
+        with span("msgs.composite_bwd"):
+            payload, first, n_sub, out = ctx.saved_tensors
+            tiles, tiles_x, width, height, image_only, bwd_bf16, plain = \
+                ctx.static
+            args = (first, n_sub, out, g_out.contiguous(), tiles, tiles_x,
+                    width, height, image_only)
+            ref, cuda = ((composite_bwd_bf16_reference,
+                          _composite_bwd_bf16_cuda) if bwd_bf16 else
+                         (composite_bwd_reference, _composite_bwd_cuda))
+            dpay = ref(payload, *args) if plain else _on(payload, cuda, ref,
+                                                         *args)
+            return (dpay,) + (None,) * 9
 
 
 def _apply(payload, sub_tile, sub_valid, tile_last_sub, tiles, tiles_x,

@@ -18,6 +18,7 @@ import torch
 from msgs_torch.kernels import composite as comp
 from msgs_torch.kernels.binning import BLOCK, bin_gaussians
 from msgs_torch.kernels.preprocess import TILE, PreprocessOut, preprocess
+from msgs_torch.trace import span
 
 
 class RasterSettings(NamedTuple):
@@ -120,11 +121,12 @@ class _GatherPayload(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        gid, gid_starts = ctx.saved_tensors
-        n_rows, image_only, pack_bf16 = ctx.static
-        return (gather_payload_vjp(g.contiguous(), gid, gid_starts, n_rows,
-                                   image_only, pack_bf16),
-                None, None, None, None)
+        with span("msgs.gather_vjp"):
+            gid, gid_starts = ctx.saved_tensors
+            n_rows, image_only, pack_bf16 = ctx.static
+            return (gather_payload_vjp(g.contiguous(), gid, gid_starts,
+                                       n_rows, image_only, pack_bf16),
+                    None, None, None, None)
 
 
 def feature_table(pre) -> torch.Tensor:
@@ -151,9 +153,10 @@ def gather_payload(pre, gauss_id, gid_starts, image_only: bool = False,
     """Per-entry compositor payload (E_cap/BLOCK, BLOCK, NFEAT): rows of
     the feature table gathered by gauss_id, differentiable through
     `gather_payload_vjp`."""
-    rows = _GatherPayload.apply(feature_table(pre), gauss_id, gid_starts,
-                                bool(image_only), bool(pack_bf16))
-    return rows.reshape(-1, BLOCK, comp.NFEAT)
+    with span("msgs.gather"):
+        rows = _GatherPayload.apply(feature_table(pre), gauss_id, gid_starts,
+                                    bool(image_only), bool(pack_bf16))
+        return rows.reshape(-1, BLOCK, comp.NFEAT)
 
 
 def composite_pipeline(pre, width: int, height: int,
@@ -166,37 +169,39 @@ def composite_pipeline(pre, width: int, height: int,
     dev = pre.depths.device
 
     # Binning yields integer structure only: it sees detached inputs.
-    binned = bin_gaussians(PreprocessOut(*(f.detach() for f in pre)),
-                           width, height, settings.entry_cap,
-                           row_tight=settings.row_tight)
+    with span("msgs.binning"):
+        binned = bin_gaussians(PreprocessOut(*(f.detach() for f in pre)),
+                               width, height, settings.entry_cap,
+                               row_tight=settings.row_tight)
 
     payload = gather_payload(pre, binned.gauss_id, binned.gid_starts,
                              settings.image_grads_only,
                              settings.grad_pack_bf16)
 
-    if settings.backend == "reference":
-        fn = comp.composite_reference
-    elif settings.backend in ("auto", "pallas"):
-        fn = comp.composite
-    else:
-        raise ValueError(f"unknown backend {settings.backend!r}")
-    tiles_out = fn(payload, binned.sub_tile, binned.sub_valid,
-                   binned.tile_last_sub, tiles, tiles_x, width, height,
-                   settings.image_grads_only, settings.bwd_bf16)
+    with span("msgs.composite"):
+        if settings.backend == "reference":
+            fn = comp.composite_reference
+        elif settings.backend in ("auto", "pallas"):
+            fn = comp.composite
+        else:
+            raise ValueError(f"unknown backend {settings.backend!r}")
+        tiles_out = fn(payload, binned.sub_tile, binned.sub_valid,
+                       binned.tile_last_sub, tiles, tiles_x, width, height,
+                       settings.image_grads_only, settings.bwd_bf16)
 
-    # tiles_out: (T, NOUT, 256) channel-major → (H, W, NOUT); empty tiles
-    # read as T=1 and nothing else.
-    empty_init = torch.zeros((comp.NOUT,), dtype=torch.float32, device=dev)
-    empty_init[comp.O_T] = 1.0
-    tiles_out = torch.where(binned.tile_nonempty[:, None, None], tiles_out,
-                            empty_init[:, None])
-    full = tiles_out.reshape(tiles_y, tiles_x, comp.NOUT, TILE, TILE)
-    full = full.permute(0, 3, 1, 4, 2).reshape(
-        tiles_y * TILE, tiles_x * TILE, comp.NOUT)[:height, :width]
+        # tiles_out: (T, NOUT, 256) channel-major → (H, W, NOUT); empty tiles
+        # read as T=1 and nothing else.
+        empty_init = torch.zeros((comp.NOUT,), dtype=torch.float32, device=dev)
+        empty_init[comp.O_T] = 1.0
+        tiles_out = torch.where(binned.tile_nonempty[:, None, None], tiles_out,
+                                empty_init[:, None])
+        full = tiles_out.reshape(tiles_y, tiles_x, comp.NOUT, TILE, TILE)
+        full = full.permute(0, 3, 1, 4, 2).reshape(
+            tiles_y * TILE, tiles_x * TILE, comp.NOUT)[:height, :width]
 
-    # Contribution flags at the reference's preprocess-level semantics:
-    # survived culling/filters and emitted ≥1 packed entry.
-    contributed = torch.diff(binned.gid_starts) > 0
+        # Contribution flags at the reference's preprocess-level semantics:
+        # survived culling/filters and emitted ≥1 packed entry.
+        contributed = torch.diff(binned.gid_starts) > 0
 
     return CompositeResult(
         image=full[..., comp.O_R:comp.O_B + 1],
@@ -238,17 +243,20 @@ def rasterize(
     `means2d_probe` (the screen-space densification gradient) included."""
     H, W = camera.height, camera.width
 
-    pre = preprocess(
-        camera, means3d, opacities,
-        shs=shs, colors_precomp=colors_precomp,
-        scales=scales, quats=quats, cov3d_precomp=cov3d_precomp,
-        active_sh_degree=active_sh_degree, scale_modifier=scale_modifier,
-        live_mask=live_mask, means2d_probe=means2d_probe,
-        filter_small=settings.filter_small, filter_large=settings.filter_large,
-        fade_ungated=settings.fade_ungated,
-        fade_size=fade_size, max_pixel_sizes=max_pixel_sizes,
-        min_pixel_sizes=min_pixel_sizes, base_mask=base_mask,
-        occ_multiplier=occ_multiplier, dc_delta=dc_delta, reso_lvl=reso_lvl)
+    with span("msgs.preprocess"):
+        pre = preprocess(
+            camera, means3d, opacities,
+            shs=shs, colors_precomp=colors_precomp,
+            scales=scales, quats=quats, cov3d_precomp=cov3d_precomp,
+            active_sh_degree=active_sh_degree, scale_modifier=scale_modifier,
+            live_mask=live_mask, means2d_probe=means2d_probe,
+            filter_small=settings.filter_small,
+            filter_large=settings.filter_large,
+            fade_ungated=settings.fade_ungated,
+            fade_size=fade_size, max_pixel_sizes=max_pixel_sizes,
+            min_pixel_sizes=min_pixel_sizes, base_mask=base_mask,
+            occ_multiplier=occ_multiplier, dc_delta=dc_delta,
+            reso_lvl=reso_lvl)
 
     res = composite_pipeline(pre, W, H, settings)
 

@@ -2,9 +2,10 @@
 tools/exp_*.py, run as `python -m msgs_torch.tools.<name>`.
 
 Shared here: the timing (CUDA events on the card, the host clock on the
-CPU) and the device's name; for the gather scripts, their command line
-(`[N] [E] [--device cpu]`), the exact check every gather variant is held
-to and the bytes a gather must move.
+CPU), the device's name, a profiler trace's events and the device's busy
+time in it, and the bench scene; for the gather scripts, their command
+line (`[N] [E] [--device cpu]`), the exact check every gather variant is
+held to and the bytes a gather must move.
 """
 from __future__ import annotations
 
@@ -16,7 +17,24 @@ import statistics
 import tempfile
 import time
 
+import numpy as np
 import torch
+
+BENCH_N = 100_000   # Gaussians in the bench scene
+
+
+def bench_scene(seed: int = 0):
+    """bench.py:76-85, the same draws in the same order, as float32 numpy:
+    (means, scales, quats, opacities, colours) of BENCH_N Gaussians."""
+    rng = np.random.default_rng(seed)
+    means = np.concatenate([rng.uniform(-3.0, 3.0, (BENCH_N, 2)),
+                            rng.uniform(2.0, 12.0, (BENCH_N, 1))], axis=1)
+    scales = np.exp(rng.uniform(-4.5, -2.5, (BENCH_N, 3)))
+    quats = rng.normal(size=(BENCH_N, 4))
+    opac = rng.uniform(0.2, 0.9, BENCH_N)
+    cols = rng.uniform(0, 1, (BENCH_N, 3))
+    return tuple(np.asarray(a, np.float32)
+                 for a in (means, scales, quats, opac, cols))
 
 
 def parse_args(argv, doc: str) -> argparse.Namespace:
@@ -84,6 +102,22 @@ def trace_events(fn, reps: int = 5, pad_s: float = 0.0) -> list:
         prof.export_chrome_trace(path)
         with open(path) as f:
             return json.load(f)["traceEvents"]
+
+
+def _device_busy_ms(trace_path: str) -> float:
+    """Union of the device's kernel / memcpy / memset intervals in a Chrome
+    trace (the profiler's per-op tables count a kernel's time on both the
+    op and the kernel row, so their sums overstate it)."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("ph") == "X" and e.get("cat") in
+                   ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy / 1e3
 
 
 def kernel_name(e: dict) -> str:

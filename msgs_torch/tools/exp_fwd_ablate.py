@@ -47,8 +47,8 @@ from msgs_torch.kernels import composite as comp
 from msgs_torch.kernels.binning import bin_gaussians
 from msgs_torch.kernels.preprocess import preprocess
 from msgs_torch.kernels.rasterize import gather_payload
-from msgs_torch.profile_render import bench_scene
-from msgs_torch.tools import clock_name, device_name, time_ms, trace_ms, work
+from msgs_torch.tools import bench_scene, clock_name, device_name, time_ms, \
+    trace_ms, work
 
 W, H, N, ENTRY_CAP = 1920, 1080, 100_000, 1_572_864
 COT = 0.1

@@ -27,6 +27,7 @@ from msgs_torch.model import gaussians as G
 from msgs_torch.model.gaussians import GaussianConfig, GaussianState, \
     state_from_numpy
 from msgs_torch.ms.voxel import insert_large_gaussians
+from msgs_torch.trace import span
 from msgs_torch.train.optimizer import AdamState, OptimParams, \
     adam_update, group_lrs, init_adam, zero_moments_at
 
@@ -65,34 +66,36 @@ def render_state(st: GaussianState, camera, cfg: GaussianConfig,
     """Render a GaussianState through the rasterizer, on the device its
     tensors live on; differentiable in the state's parameters and in
     `means2d_probe`."""
-    return rasterize(
-        camera,
-        st.xyz,
-        st.act_opacity(),
-        shs=None if override_color is not None else st.shs(),
-        colors_precomp=override_color,
-        scales=st.act_scales(scale_modifier),
-        quats=st.act_rotation(),
-        active_sh_degree=(st.active_sh_degree if active_sh_degree is None
-                          else active_sh_degree),
-        bg=bg,
-        live_mask=st.live,
-        means2d_probe=means2d_probe,
-        fade_size=fade_size,
-        max_pixel_sizes=st.max_pixel_sizes,
-        min_pixel_sizes=st.min_pixel_sizes,
-        base_mask=st.base_mask,
-        occ_multiplier=st.act_occ(cfg.multi_occ),
-        dc_delta=st.dc_delta if cfg.multi_dc else None,
-        reso_lvl=reso_lvl,
-        settings=settings,
-    )
+    # The state's activations and SH concat are preprocess's first part.
+    with span("msgs.preprocess"):
+        kw = dict(
+            opacities=st.act_opacity(),
+            shs=None if override_color is not None else st.shs(),
+            colors_precomp=override_color,
+            scales=st.act_scales(scale_modifier),
+            quats=st.act_rotation(),
+            active_sh_degree=(st.active_sh_degree if active_sh_degree is None
+                              else active_sh_degree),
+            bg=bg,
+            live_mask=st.live,
+            means2d_probe=means2d_probe,
+            fade_size=fade_size,
+            max_pixel_sizes=st.max_pixel_sizes,
+            min_pixel_sizes=st.min_pixel_sizes,
+            base_mask=st.base_mask,
+            occ_multiplier=st.act_occ(cfg.multi_occ),
+            dc_delta=st.dc_delta if cfg.multi_dc else None,
+            reso_lvl=reso_lvl,
+            settings=settings,
+        )
+    return rasterize(camera, st.xyz, **kw)
 
 
 def _grads(loss, leaves):
     """d loss / d leaves; a leaf the render does not use (occ_multiplier
     without multi_occ, dc_delta without multi_dc) gets zeros, as in JAX."""
-    gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+    with span("msgs.backward"):
+        gs = torch.autograd.grad(loss, leaves, allow_unused=True)
     return [torch.zeros_like(x) if g is None else g
             for g, x in zip(gs, leaves)]
 
@@ -110,55 +113,62 @@ def train_step(state: TrainState, camera, gt_image, *,
     and base mask under their gates (bools or 0-d bool tensors). A step
     whose binning overflowed changes nothing but the iteration counter.
     Returns (new state, metrics)."""
-    st = state.gaussians
-    dev = st.xyz.device
-    params = {k: v.detach().requires_grad_() for k, v in st.params().items()}
-    probe = torch.zeros((st.xyz.shape[0], 2), dtype=torch.float32,
-                        device=dev, requires_grad=True)
-    bg = torch.zeros((3,), dtype=torch.float32, device=dev)
-    with torch.enable_grad():
-        out = render_state(st.with_params(params), camera, cfg, settings,
-                           bg=bg, reso_lvl=reso_lvl, fade_size=fade_size,
-                           means2d_probe=probe)
-        l1 = l1_loss(out.image, gt_image)
-        loss = ((1.0 - lambda_dssim) * l1
-                + lambda_dssim * (1.0 - ssim(out.image, gt_image))) \
-            * loss_mult
-        *gs, probe_grad = _grads(loss, list(params.values()) + [probe])
-    grads = dict(zip(params, gs))
+    with span("msgs.train_step"):
+        st = state.gaussians
+        dev = st.xyz.device
+        params = {k: v.detach().requires_grad_()
+                  for k, v in st.params().items()}
+        probe = torch.zeros((st.xyz.shape[0], 2), dtype=torch.float32,
+                            device=dev, requires_grad=True)
+        bg = torch.zeros((3,), dtype=torch.float32, device=dev)
+        with torch.enable_grad():
+            out = render_state(st.with_params(params), camera, cfg,
+                               settings, bg=bg, reso_lvl=reso_lvl,
+                               fade_size=fade_size, means2d_probe=probe)
+            with span("msgs.loss"):
+                l1 = l1_loss(out.image, gt_image)
+                loss = ((1.0 - lambda_dssim) * l1
+                        + lambda_dssim * (1.0 - ssim(out.image, gt_image))) \
+                    * loss_mult
+            *gs, probe_grad = _grads(loss, list(params.values()) + [probe])
+        grads = dict(zip(params, gs))
 
-    with torch.no_grad():
-        lrs = group_lrs(op, spatial_lr_scale, state.iteration,
-                        ms_lr_active=ms_lr_active)
-        new_params, new_adam = adam_update(st.params(), grads, state.adam,
-                                           lrs)
-        new = st.with_params(new_params)
+        with span("msgs.update"), torch.no_grad():
+            lrs = group_lrs(op, spatial_lr_scale, state.iteration,
+                            ms_lr_active=ms_lr_active)
+            new_params, new_adam = adam_update(st.params(), grads,
+                                               state.adam, lrs)
+            new = st.with_params(new_params)
 
-        gate = lambda b: torch.as_tensor(b, device=dev)
-        vis = out.visible
-        px = torch.where(gate(do_px_update), out.pixel_sizes.detach(), 0.0)
-        new = G.update_pixel_sizes(new, px, reso_lvl, cfg.reso_lvls)
-        ds = gate(do_densify_stats)
-        new = G.update_max_radii(new, out.radii, vis & ds)
-        new = G.add_densification_stats(new, probe_grad * ds, vis & ds,
-                                        reso_lvl)
-        new = G.update_base_mask(new, vis & gate(do_base_mask))
+            gate = lambda b: torch.as_tensor(b, device=dev)
+            vis = out.visible
+            px = torch.where(gate(do_px_update), out.pixel_sizes.detach(),
+                             0.0)
+            new = G.update_pixel_sizes(new, px, reso_lvl, cfg.reso_lvls)
+            ds = gate(do_densify_stats)
+            new = G.update_max_radii(new, out.radii, vis & ds)
+            new = G.add_densification_stats(new, probe_grad * ds, vis & ds,
+                                            reso_lvl)
+            new = G.update_base_mask(new, vis & gate(do_base_mask))
 
-        # Overflow safety: a step whose binning truncated entries rendered
-        # (and differentiated) a wrong image; keep the old state.
-        ok = out.overflow == 0
-        keep = lambda a, b: torch.where(ok, a, b)
-        new = GaussianState(*(keep(a, b) for a, b in zip(new, st)))
-        new_adam = AdamState(
-            mu={k: keep(v, state.adam.mu[k]) for k, v in new_adam.mu.items()},
-            nu={k: keep(v, state.adam.nu[k]) for k, v in new_adam.nu.items()},
-            count=keep(new_adam.count, state.adam.count))
+            # Overflow safety: a step whose binning truncated entries
+            # rendered (and differentiated) a wrong image; keep the old
+            # state.
+            ok = out.overflow == 0
+            keep = lambda a, b: torch.where(ok, a, b)
+            new = GaussianState(*(keep(a, b) for a, b in zip(new, st)))
+            new_adam = AdamState(
+                mu={k: keep(v, state.adam.mu[k])
+                    for k, v in new_adam.mu.items()},
+                nu={k: keep(v, state.adam.nu[k])
+                    for k, v in new_adam.nu.items()},
+                count=keep(new_adam.count, state.adam.count))
 
-        metrics = {"loss": loss.detach(), "l1": l1.detach(),
-                   "num_entries": out.num_entries, "overflow": out.overflow,
-                   "num_live": new.num_live}
-    return TrainState(gaussians=new, adam=new_adam,
-                      iteration=state.iteration + 1), metrics
+            metrics = {"loss": loss.detach(), "l1": l1.detach(),
+                       "num_entries": out.num_entries,
+                       "overflow": out.overflow, "num_live": new.num_live}
+        return TrainState(gaussians=new, adam=new_adam,
+                          iteration=state.iteration + 1), metrics
 
 
 def densify_step(state: TrainState, key=None, *, op: OptimParams,
@@ -217,7 +227,7 @@ def eval_render(state, camera, *, cfg: GaussianConfig,
     """Render for evaluation or serving, without autograd. `state` is a
     GaussianState or any object with a `.gaussians` field holding one."""
     st = getattr(state, "gaussians", state)
-    with torch.no_grad():
+    with span("msgs.eval_render"), torch.no_grad():
         return render_state(st, camera, cfg, settings, bg=bg,
                             reso_lvl=reso_lvl, fade_size=fade_size,
                             scale_modifier=scale_modifier)

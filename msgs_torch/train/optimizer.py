@@ -17,6 +17,8 @@ from typing import NamedTuple
 
 import torch
 
+from msgs_torch.trace import span
+
 _F32 = torch.float32
 
 
@@ -103,19 +105,20 @@ def adam_update(params: dict, grads: dict, state: AdamState, lrs: dict,
     """One Adam step with per-group LRs (torch.optim.Adam semantics, eps
     added outside the square root). Returns (new params, new state); the
     inputs are not modified."""
-    count = state.count + 1
-    c = count.to(_F32)
-    bc1 = 1.0 - b1 ** c
-    bc2 = 1.0 - b2 ** c
-    new_mu, new_nu, new_p = {}, {}, {}
-    for k in params:
-        g = grads[k]
-        mu = b1 * state.mu[k] + (1 - b1) * g
-        nu = b2 * state.nu[k] + (1 - b2) * g * g
-        update = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
-        new_p[k] = params[k] - lrs[k] * update
-        new_mu[k], new_nu[k] = mu, nu
-    return new_p, AdamState(mu=new_mu, nu=new_nu, count=count)
+    with span("msgs.adam"):
+        count = state.count + 1
+        c = count.to(_F32)
+        bc1 = 1.0 - b1 ** c
+        bc2 = 1.0 - b2 ** c
+        new_mu, new_nu, new_p = {}, {}, {}
+        for k in params:
+            g = grads[k]
+            mu = b1 * state.mu[k] + (1 - b1) * g
+            nu = b2 * state.nu[k] + (1 - b2) * g * g
+            update = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
+            new_p[k] = params[k] - lrs[k] * update
+            new_mu[k], new_nu[k] = mu, nu
+        return new_p, AdamState(mu=new_mu, nu=new_nu, count=count)
 
 
 def zero_moments_at(state: AdamState, touched: torch.Tensor) -> AdamState:

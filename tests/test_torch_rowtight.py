@@ -28,7 +28,7 @@ from msgs_torch.kernels import binning as tbin
 from msgs_torch.kernels.preprocess import ALPHA_MIN, TILE, PreprocessOut
 from msgs_torch.kernels.preprocess import preprocess as torch_preprocess
 from msgs_torch.kernels.rasterize import RasterSettings, rasterize
-from msgs_torch.profile_render import bench_scene
+from msgs_torch.tools import bench_scene
 from tests.helpers import make_scene
 from tests.torch_parity import assert_same, cameras, rotation, t, \
     tile_multisets
