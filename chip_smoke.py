@@ -8,12 +8,17 @@ Builds the CUDA kernels from msgs_torch/csrc (into build/msgs_torch/), then:
   2. build: the kernel build time and ptxas's register / shared-memory use;
      for the scan (kernels 1, 2), the compositor (3, 4, 4b), every
      ablation kernel instance (7a-9), every gather instance (6: the
-     feature table's transpose and the gathers) and every probe instance
-     (5), the runtime's registers, stack, static and dynamic shared memory
-     and CTAs per SM (cudaFuncGetAttributes,
+     feature table's transpose and the gathers), every probe instance
+     (5) and the difference histogram's four instances (10, at the
+     msgs-m360 ×1 grid), the runtime's registers, stack, static and dynamic
+     shared memory and CTAs per SM (cudaFuncGetAttributes,
      cudaOccupancyMaxActiveBlocksPerMultiprocessor);
   3. kernels vs plain: each kernel against its plain PyTorch version on the
-     card at the main path's shapes (scans exact, also at lengths around a
+     card at the main path's shapes (binning's difference histogram, kernel
+     10, bit for bit and on its shared-memory path on 4,194,304 rows of
+     seeded band descriptors at the benchmark cells' ×1 grids and a coarse
+     zoom grid, timed in turns with its plain version; scans exact, also at
+     lengths around a
      chunk and a prime near 10^6; compositor forward image and T ≤ 1e-5,
      depth and acc ≤ 1e-4; compositor backward per payload column ≤
      3e-5·max|column| + 1e-6, for image_only True and False), with median
@@ -390,9 +395,9 @@ def phase_build():
                   f"{line.split(':', 1)[1].strip()}; {stack}")
             name = None
     # The redesigned kernels' builds as the runtime reports them.
-    for label, entry, arg in (KERNEL_INFO + ablate_kernel_info()
-                              + gather_probe_kernel_info()):
-        i = _build.kernel_info(entry, arg)
+    for label, entry, *args in (KERNEL_INFO + ablate_kernel_info()
+                                + gather_probe_kernel_info()):
+        i = _build.kernel_info(entry, *args)
         print(f"[build] {label}: {i['registers']} registers, "
               f"{i['stack_bytes']} bytes of stack, {i['static_smem']} bytes "
               f"of static and {i['dynamic_smem']} of dynamic shared memory, "
@@ -410,7 +415,16 @@ KERNEL_INFO = (("scan_lookback<float> (kernel 1)", "msgs_scan_info", 0),
                ("composite_bwd_bf16 image_only (kernel 4b)",
                 "msgs_composite_bwd_bf16_info", 1),
                ("composite_bwd_bf16 all columns (kernel 4b)",
-                "msgs_composite_bwd_bf16_info", 0))
+                "msgs_composite_bwd_bf16_info", 0),
+               # (instance, grid cells): the msgs-m360 ×1 grid, 54 × 80
+               ("diff_hist shared bands (kernel 10)", "msgs_diff_hist_info",
+                0, 54 * 80),
+               ("diff_hist shared corners (kernel 10)",
+                "msgs_diff_hist_info", 1, 54 * 80),
+               ("diff_hist global bands (kernel 10)", "msgs_diff_hist_info",
+                2, 0),
+               ("diff_hist global corners (kernel 10)",
+                "msgs_diff_hist_info", 3, 0))
 
 
 def ablate_kernel_info() -> tuple:
@@ -655,6 +669,69 @@ def scan_record(name, dtype, shapes, dev):
                                          "bound_ms", "bound_by")}
             rec.update(max_abs_err=err, extra=t)
             print(f"[kernels] {scan_line(name, dict(rec, **t))}", flush=True)
+    return rec
+
+
+# [kernels]' difference-histogram shapes: (label, width, height, live
+# share) of the benchmark cells' ×1 frames (the render cells round a frame
+# down to whole tiles) and a coarse zoom frame (×32, 2 × 1 tiles), each over
+# 4,194,304 rows of band descriptors, the rows of the cells' models. The
+# live shares are assumed: at most 90% of msgs-m360's rows and 65% of
+# 3dgs-db's hold a Gaussian, and the zoom shows 15% of msgs-m360's rows over
+# its sweep.
+DIFF_HIST_SHAPES = (("msgs-m360.train x1", 1237, 822, 0.9),
+                    ("msgs-m360.zoom x1", 1232, 816, 0.9),
+                    ("3dgs-db.render x1", 1328, 864, 0.65),
+                    ("msgs-m360.zoom x32", 32, 16, 0.15))
+DIFF_HIST_ROWS = 1 << 22
+
+
+def diff_hist_record(dev):
+    """Kernel 10 (csrc/diff_hist.cu) against its plain version on seeded
+    band descriptors at each of DIFF_HIST_SHAPES: bit for bit, on the
+    shared-memory path; CUDA-event times in turns with the plain version,
+    the profiler's device time, and the bytes bound. The record's times
+    are the first shape's."""
+    from msgs_torch.kernels import _build, binning
+    from msgs_torch.tools import band_hist_bytes, band_rows
+    rec, shapes = None, []
+    for label, W, H, share in DIFF_HIST_SHAPES:
+        tx, ty = (W + 15) // 16, (H + 15) // 16
+        rect_min, qs, txlos, ws, live = band_rows(DIFF_HIST_ROWS, tx, ty,
+                                                  share, seed=W)
+        args = (rect_min.to(dev), tuple(q.to(dev) for q in qs),
+                tuple(t.to(dev) for t in txlos),
+                tuple(w.to(dev) for w in ws), live.to(dev), ty + 2, tx + 2)
+        call = lambda: binning._band_histogram(*args)
+        plain = lambda: binning._band_histogram_plain(*args)
+        before = {k: _build.launch_counts[k] for k in binning.DIFF_HIST_PATHS}
+        got = call()
+        torch.cuda.synchronize()
+        paths = {k: _build.launch_counts[k] - before[k]
+                 for k in binning.DIFF_HIST_PATHS}
+        check(paths == {"diff_hist_smem": 1, "diff_hist_global": 0},
+              f"diff_hist {label}: launches by path {paths}")
+        check(torch.equal(got, plain()),
+              f"diff_hist {label} differs from its plain version")
+        ms, plain_ms = paired_ms(call, plain, 20)
+        dev_ms, events, _ = device_ms(call, "diff_hist", 10)
+        nbytes = band_hist_bytes(live, (ty + 2) * (tx + 2))
+        bound = nbytes / PEAK_BYTES * 1e3
+        shape = dict(label=label, grid=[ty + 2, tx + 2],
+                     rows=DIFF_HIST_ROWS, live_share=share, ms=ms,
+                     plain_ms=plain_ms, device_ms=dev_ms,
+                     device_events=events, bytes=nbytes, bound_ms=bound)
+        shapes.append(shape)
+        print(f"[kernels] diff_hist {label} ({ty + 2}x{tx + 2} grid, "
+              f"{DIFF_HIST_ROWS} rows, {share:.0%} live): bit for bit, "
+              f"shared-memory path; kernel {ms:.4f} ms (CUDA events, in "
+              f"turns with the plain version; device {ms_text(dev_ms)} from "
+              f"{events} of 10 calls), plain {plain_ms:.4f} ms, bound "
+              f"{bound:.5f} ms ({nbytes} bytes)", flush=True)
+        if rec is None:
+            rec = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                       bound_ms=bound, bound_by="bytes", max_abs_err=0.0)
+    rec["extra"] = dict(shapes=shapes)
     return rec
 
 
@@ -1223,7 +1300,7 @@ def phase_main_path(dev):
     for k, v in counts.items():
         check(v > 0 or k.startswith("composite_bwd")
               or k in ("gather_rows", "mxu_probe", "fwd_ablate",
-                       "bwd_ablate"),
+                       "bwd_ablate", "diff_hist_global"),
               f"kernel {k} never launched on the serving path")
     for mode in modes:
         print(f"[serve] {mode}: num_entries per camera {entries[mode]}, "
@@ -3441,6 +3518,7 @@ def main():
                                 [(4, 1_417_216), (7, 999_983), (2, 4_095)],
                                 dev),
     }
+    diff_rec = diff_hist_record(dev)
     bench_stream = composite_stream(dev, *bench_scene(0), W, H, ENTRY_CAP)
     comp_rec = composite_check("1920x1080 bench stream", dev, bench_stream,
                                W, H, timed=True)
@@ -3507,6 +3585,9 @@ def main():
                           "tools/exp_bwd2.py:323 (bwd_kernel_var :177)"),
         "bwd_ablate_bwd3": ("msgs_torch/csrc/bwd_ablate.cu",
                           "tools/exp_bwd3.py:259 (bwd_kernel :101)"),
+        "diff_hist": ("msgs_torch/csrc/diff_hist.cu",
+                      "none (msgs/kernels/binning.py:211 "
+                      "_onehot_diff_histogram is XLA)"),
     }
     kernel_recs = list(scans.items()) + [("composite_fwd", comp_rec),
                                          ("composite_bwd", bwd_rec),
@@ -3517,10 +3598,13 @@ def main():
                                           ablate_recs["fwd_ablate"]),
                                          ("bwd_ablate",
                                           ablate_recs["bwd_ablate"])]
-    kernel_recs += list(bwd2_recs.items())
+    kernel_recs += list(bwd2_recs.items()) + [("diff_hist", diff_rec)]
     runs = (serve_counts, rowtight_counts, tools_counts, mxu_counts,
             ablate_counts, bwd2_counts, train_counts, trainer_counts,
             eval_counts, apps_counts, dist_counts, io_counts)
+    for c in runs:   # kernel 10's launches on either path
+        c["diff_hist"] = (c.get("diff_hist_smem", 0)
+                          + c.get("diff_hist_global", 0))
     for name, rec in kernel_recs:
         src, rep = meta[name]
         # launches: over the twelve main-path runs, each counted from 0

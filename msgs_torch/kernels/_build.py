@@ -34,7 +34,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 launch_counts = {"scan_f32": 0, "scan_i32": 0, "composite_fwd": 0,
                  "composite_bwd": 0, "composite_bwd_bf16": 0,
                  "gather_rows": 0, "mxu_probe": 0, "fwd_ablate": 0,
-                 "bwd_ablate": 0}
+                 "bwd_ablate": 0, "diff_hist_smem": 0,
+                 "diff_hist_global": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -79,6 +80,13 @@ _SIGNATURES = {
     # (payload, sub_tile, sub_valid, cst, dpay, n_blocks, instance (ablate.
     #  BWD_INSTANCES), tiles, tiles_x, width, height, stream)
     "msgs_bwd_ablate": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # (descriptor pointers, form, rows, ystride, ny, nx, out, int* path,
+    #  stream)
+    "msgs_diff_hist": [_P, _I, ctypes.c_longlong, ctypes.c_longlong, _I, _I,
+                       _P, _P, _P],
+    # (instance: shared bands | shared corners | global bands | global
+    #  corners, grid cells, int out[5])
+    "msgs_diff_hist_info": [_I, _I, _P],
 }
 
 _lib = None
@@ -177,13 +185,14 @@ def check(err: int, what: str):
                            f"({msg})")
 
 
-def kernel_info(entry: str, arg: int) -> dict:
+def kernel_info(entry: str, *args: int) -> dict:
     """A kernel's build as the card's runtime reports it (`msgs_*_info`
-    entries): registers a thread, stack (local) bytes, static and dynamic
-    shared memory a CTA, and CTAs per SM at its launch configuration."""
+    entries, given their int arguments): registers a thread, stack (local)
+    bytes, static and dynamic shared memory a CTA, and CTAs per SM at its
+    launch configuration."""
     lib = load()
     out = (ctypes.c_int * 5)()
-    check(getattr(lib, entry)(arg, ctypes.addressof(out)), entry)
+    check(getattr(lib, entry)(*args, ctypes.addressof(out)), entry)
     return dict(zip(("registers", "stack_bytes", "static_smem",
                      "dynamic_smem", "ctas_per_sm"), out))
 

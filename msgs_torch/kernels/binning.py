@@ -14,8 +14,13 @@ in the reference too.
 Differences in mechanism, not in output:
   - delta scans scatter at logical positions and run on `scan.cumsum_rows`
     (no sublane-major permutation);
-  - the difference histogram is an exact int32 corner scatter-add instead of
-    one-hot f32 matmuls;
+  - the difference histogram is exact int32 instead of one-hot f32
+    matmuls: on the card one launch of csrc/diff_hist.cu, each CTA adding
+    corners into a private copy of the grid in shared memory (global
+    atomics where the grid does not fit) and skipping the empty rectangles
+    (every culled row, every empty band), whose corners cancel; on CPU
+    tensors its plain version, the corner scatter-add of
+    `_onehot_diff_histogram`, once per band;
   - every prefix sum here, including the ones XLA computed, goes through
     `scan.cumsum_rows`, and all integer math stays int32 as in JAX.
 
@@ -24,10 +29,12 @@ plain rects (`row_tight=False`) and per-row spans (`row_tight=True`).
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
 
+from msgs_torch.kernels import _build
 from msgs_torch.kernels.preprocess import ALPHA_MIN, TILE, PreprocessOut
 from msgs_torch.kernels.scan import cumsum_rows
 from msgs_torch.trace import span
@@ -183,6 +190,86 @@ def _onehot_diff_histogram(ylo, yhi, xlo, xhi, ny: int, nx: int):
     return hist.reshape(ny, nx)
 
 
+# csrc/diff_hist.cu's paths, by the number its C entry reports.
+DIFF_HIST_PATHS = ("diff_hist_smem", "diff_hist_global")
+
+
+def _diff_hist_cuda(form: int, desc, n_rows: int, ystride: int, ny: int,
+                    nx: int, device):
+    """One launch of msgs_diff_hist on the descriptor tensors `desc` (form
+    0: bands, 1: corners), counted by the path the C entry took."""
+    out = torch.zeros((ny, nx), dtype=_I32, device=device)
+    if n_rows == 0:
+        return out
+    lib = _build.load()
+    path = ctypes.c_int(-1)
+    _build.check(lib.msgs_diff_hist(
+        (ctypes.c_void_p * len(desc))(*(t.data_ptr() for t in desc)), form,
+        n_rows, ystride, ny, nx, out.data_ptr(), ctypes.byref(path),
+        _build.stream_ptr(out)), "diff_hist")
+    _build.launch_counts[DIFF_HIST_PATHS[path.value]] += 1
+    return out
+
+
+def _check_rows(what, tensors, dtype, n: int, device):
+    for t in tensors:
+        if t.dtype != dtype or t.shape != (n,) or t.device != device:
+            raise ValueError(f"{what}: want ({n},) {dtype} on {device}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def _diff_histogram(ylo, yhi, xlo, xhi, ny: int, nx: int):
+    """`_onehot_diff_histogram` of int32 corner arrays: on the card one
+    launch of csrc/diff_hist.cu (one rectangle a row), on the CPU the plain
+    version."""
+    if not ylo.is_cuda:
+        return _onehot_diff_histogram(ylo, yhi, xlo, xhi, ny, nx)
+    n = ylo.shape[0]
+    desc = [t.contiguous() for t in (ylo, yhi, xlo, xhi)]
+    _check_rows("diff histogram corners", desc, _I32, n, ylo.device)
+    return _diff_hist_cuda(1, desc, n, 0, ny, nx, ylo.device)
+
+
+def _band_histogram_plain(rect_min, qs, txlos, ws, live, ny: int, nx: int):
+    """Plain version of `_band_histogram`: one corner scatter per band, the
+    rows that are off (not live, or w <= 0) parked on the drop row ny − 1."""
+    diff = None
+    qa = torch.zeros_like(qs[0])
+    for qb, txlo, w in zip(qs, txlos, ws):
+        on = live & (w > 0)
+        y0 = torch.where(on, rect_min[:, 1] + qa, ny - 1)
+        y1 = torch.where(on, rect_min[:, 1] + qb, ny - 1)
+        h = _onehot_diff_histogram(y0, y1, txlo.to(_I32),
+                                   (txlo + w).to(_I32), ny, nx)
+        diff = h if diff is None else diff + h
+        qa = qb
+    return diff
+
+
+def _band_histogram(rect_min, qs, txlos, ws, live, ny: int, nx: int):
+    """The banded path's difference histogram. Row n's band k covers tile
+    rows [rect_min[n, 1] + q_{k-1}[n], rect_min[n, 1] + q_k[n]) (q_{-1} = 0)
+    and tile columns [int(txlo_k[n]), int(txlo_k[n] + w_k[n])), where the
+    row is live and w_k[n] > 0. A CUDA tensor goes through one launch of
+    csrc/diff_hist.cu, a CPU tensor through the plain version; the two
+    grids are equal bit for bit."""
+    if not rect_min.is_cuda:
+        return _band_histogram_plain(rect_min, qs, txlos, ws, live, ny, nx)
+    n = rect_min.shape[0]
+    dev = rect_min.device
+    if (rect_min.dtype != _I32 or rect_min.shape != (n, 2) or len(qs) != 3
+            or len(txlos) != 3 or len(ws) != 3):
+        raise ValueError("band histogram: want an (N, 2) int32 rect_min "
+                         "and three bands")
+    rows = [t.contiguous() for t in (*qs, *txlos, *ws, live)]
+    _check_rows("band histogram boundaries", rows[:3], _I32, n, dev)
+    _check_rows("band histogram columns", rows[3:9], _F32, n, dev)
+    _check_rows("band histogram live flags", rows[9:], torch.bool, n, dev)
+    # The rect's top row is read in place, every second int32.
+    return _diff_hist_cuda(0, [rect_min.contiguous()[:, 1], *rows], n, 2,
+                           ny, nx, dev)
+
+
 def _cover(diff, tiles_y: int, tiles_x: int):
     """2-D inclusive prefix of a difference histogram → per-tile counts."""
     c = cumsum_rows(diff.T.contiguous()).T.contiguous()   # along y
@@ -246,7 +333,7 @@ def _bin_gaussians_rect(pre: PreprocessOut, width: int, height: int,
         y1 = torch.where(live, pre.rect_max[:, 1], tiles_y + 1)
         x0 = pre.rect_min[:, 0]
         x1 = pre.rect_max[:, 0]
-        diff = _onehot_diff_histogram(y0, y1, x0, x1, tiles_y + 2, tiles_x + 2)
+        diff = _diff_histogram(y0, y1, x0, x1, tiles_y + 2, tiles_x + 2)
         tcounts = _cover(diff, tiles_y, tiles_x)
 
     with span("msgs.binning.emit"):
@@ -409,20 +496,11 @@ def _bin_gaussians_banded(pre: PreprocessOut, width: int, height: int,
         kept = counts * (offsets + counts <= entry_cap)
         live = kept > 0
 
-    # --- per-tile entry counts: one difference histogram per band ---
+    # --- per-tile entry counts: one difference histogram of the bands ---
     with span("msgs.binning.hist"):
-        def band_hist(qa, qb, txlo, w):
-            on = live & (w > 0)
-            y0 = torch.where(on, pre.rect_min[:, 1] + qa, tiles_y + 1)
-            y1 = torch.where(on, pre.rect_min[:, 1] + qb, tiles_y + 1)
-            x0 = txlo.to(_I32)
-            x1 = (txlo + w).to(_I32)
-            return _onehot_diff_histogram(y0, y1, x0, x1,
-                                          tiles_y + 2, tiles_x + 2)
-
-        diff = (band_hist(zero, q1, txlo1, w1)
-                + band_hist(q1, q2, txlo2, w2)
-                + band_hist(q2, rect_h, txlo3, w3))
+        diff = _band_histogram(pre.rect_min, (q1, q2, rect_h),
+                               (txlo1, txlo2, txlo3), (w1, w2, w3), live,
+                               tiles_y + 2, tiles_x + 2)
         tcounts = _cover(diff, tiles_y, tiles_x)
 
     # --- entry stream: bit-packed int32 delta-scan planes, then band select
@@ -617,7 +695,7 @@ def _bin_gaussians_rowtight(pre: PreprocessOut, width: int, height: int,
         # difference per row (its y corner lies outside the grid), summed
         # along x ---
         ty_i = torch.where(w_eff > 0, ty, float(tiles_y)).to(_I32)
-        diffx = _onehot_diff_histogram(
+        diffx = _diff_histogram(
             ty_i, torch.full_like(ty_i, tiles_y + 1), txlo.to(_I32),
             txhi.to(_I32) + 1, tiles_y + 1, tiles_x + 1)
         tcounts = cumsum_rows(diffx)[:tiles_y, :tiles_x].reshape(-1)

@@ -5,7 +5,8 @@ Shared here: the timing (CUDA events on the card, the host clock on the
 CPU), the device's name, a profiler trace's events and the device's busy
 time in it, and the bench scene; for the gather scripts, their command
 line (`[N] [E] [--device cpu]`), the exact check every gather variant is
-held to and the bytes a gather must move.
+held to and the bytes a gather must move; for the difference histogram,
+seeded band descriptors and the bytes they need read.
 """
 from __future__ import annotations
 
@@ -161,3 +162,38 @@ def gather_bytes(gid: torch.Tensor, F: int) -> int:
     read, and each table row that gid references read once."""
     E = gid.shape[0]
     return E * F * 4 + E * 4 + int(torch.unique(gid).numel()) * F * 4
+
+
+def band_rows(n: int, tiles_x: int, tiles_y: int, live_share: float,
+              seed: int):
+    """Band descriptors as binning's banded path forms them, for its
+    difference histogram (kernels/binning.py:_band_histogram): rects of
+    1-3 tile rows inside the frame, q1 = h // 4, q2 = h - q1, per band an
+    integer column low and a width of 1-3 tiles (0 for an empty band), live
+    at `live_share`. Dead rows carry such values too, which the histogram
+    must not count. (rect_min, (q1, q2, h), txlos, ws, live) on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+    ri = lambda lo, hi: torch.randint(lo, hi, (n,), generator=g,
+                                      dtype=torch.int32)
+    ymin = ri(0, tiles_y)
+    h = torch.minimum(ri(1, 4), tiles_y - ymin)
+    rect_min = torch.stack([ri(0, tiles_x), ymin], 1)
+    q1 = torch.div(h, 4, rounding_mode="floor")
+    qs = (q1, h - q1, h)
+    txlos, ws, qa = [], [], torch.zeros_like(h)
+    for qb in qs:
+        lo = ri(0, tiles_x).float()
+        w = torch.minimum(ri(1, 4).float(), tiles_x - lo)
+        txlos.append(lo)
+        ws.append(torch.where(qb > qa, w, 0.0))
+        qa = qb
+    live = torch.rand(n, generator=g) < live_share
+    return rect_min, qs, tuple(txlos), tuple(ws), live
+
+
+def band_hist_bytes(live: torch.Tensor, cells: int) -> int:
+    """Least bytes of the banded difference histogram: every row's live
+    flag, the 40 descriptor bytes of each live row (its top row, three band
+    boundaries, three column lows and widths, int32 and float32), and the
+    int32 grid written once."""
+    return live.numel() + 40 * int(live.sum()) + 4 * cells

@@ -6,6 +6,7 @@ order)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from msgs.kernels import binning as jbin
 from msgs.kernels.preprocess import preprocess as jax_preprocess
@@ -64,3 +65,30 @@ def test_capacity_layout_at_bench_shapes():
     assert tbin._pack_planes(widths) == jbin._pack_planes(widths)
     assert tbin._pack_planes(widths)[0] == 4
 
+
+
+@pytest.mark.parametrize("ny,nx,seed", [(54, 80, 0), (3, 4, 1), (257, 257, 2)],
+                         ids=["m360-x1-grid", "coarse-zoom-grid",
+                              "grid-past-shared-memory"])
+def test_empty_rectangles_leave_the_histogram_unchanged(ny, nx, seed):
+    """csrc/diff_hist.cu skips every rectangle with y0 == y1 or x0 == x1:
+    adding such rectangles (on the grid, off it, inverted) to the plain
+    corner scatter leaves its grid bit-identical."""
+    rng = np.random.default_rng(seed)
+    n = 3000
+    ys = lambda k: rng.integers(-3, ny + 3, k)
+    xs = lambda k: rng.integers(-3, nx + 3, k)
+    rects = np.stack([ys(n), ys(n), xs(n), xs(n)])            # any order
+    flat_y, flat_x = ys(n), xs(n)
+    empty = np.concatenate([np.stack([flat_y, flat_y, xs(n), xs(n)]),
+                            np.stack([ys(n), ys(n), flat_x, flat_x])], 1)
+    both = np.concatenate([rects, empty], 1)[:, rng.permutation(3 * n)]
+
+    def hist(r):
+        r = torch.tensor(r, dtype=torch.int32)
+        return tbin._onehot_diff_histogram(r[0], r[1], r[2], r[3], ny, nx)
+
+    want = hist(rects)
+    assert want.dtype == torch.int32 and bool((want != 0).any())
+    assert torch.equal(hist(both), want)
+    assert not bool((hist(empty) != 0).any())

@@ -20,10 +20,11 @@ from msgs_torch.kernels.gather import (GATHER_INSTANCES, gather_rows,
 from msgs_torch.kernels.mxu_probe import (NDF, NPIX, PROBE_INSTANCES,
                                           instance_index, pair_block_probe,
                                           pair_block_probe_plain)
-from msgs_torch.tools import exp_bwd2, exp_fwd_ablate
+from msgs_torch.tools import band_rows, exp_bwd2, exp_fwd_ablate
 from msgs_torch.tools.exp_mxu import REL_BUDGET, RUNS, held_rows, \
     make_payload
-from msgs_torch.kernels.binning import bin_gaussians
+from msgs_torch.kernels import binning
+from msgs_torch.kernels.binning import DIFF_HIST_PATHS, bin_gaussians
 from msgs_torch.kernels.preprocess import preprocess
 from msgs_torch.kernels.rasterize import RasterSettings, gather_payload, \
     rasterize
@@ -1155,3 +1156,119 @@ def test_gui_frame_on_card_is_eval_render(dev, viewing_model):
     want = gui.frame_bytes(L.eval_render(st, cams[0], cfg=cfg,
                                          settings=settings).image)
     assert got["img"] == want and max(want) > 0
+
+
+def _to(dev, args):
+    return tuple(_to(dev, a) if isinstance(a, tuple) else a.to(dev)
+                 for a in args)
+
+
+def _path_launches(fn):
+    """fn()'s result and its diff_hist launches by path."""
+    before = {k: _build.launch_counts[k] for k in DIFF_HIST_PATHS}
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: _build.launch_counts[k] - before[k]
+                 for k in DIFF_HIST_PATHS}
+
+
+@pytest.mark.parametrize("W,H,n,live_share,path", [
+    (1237, 822, 4_194_304, 0.9, "diff_hist_smem"),
+    (1328, 864, 4_194_304, 0.65, "diff_hist_smem"),
+    (32, 16, 4_194_304, 0.15, "diff_hist_smem"),
+    (4080, 4080, 1_000_000, 0.9, "diff_hist_global")],
+    ids=["msgs-m360-x1", "3dgs-db-x1", "coarse-zoom-85pct-empty",
+         "257x257-past-shared-memory"])
+def test_band_histogram_kernel_matches_plain(dev, W, H, n, live_share, path):
+    """The banded path's histogram (K = 3) on the card, bit for bit against
+    the plain corner scatter, one launch on the path the grid's size
+    picks."""
+    tx, ty = (W + 15) // 16, (H + 15) // 16
+    args = _to(dev, band_rows(n, tx, ty, live_share, seed=W))
+    got, launches = _path_launches(
+        lambda: binning._band_histogram(*args, ty + 2, tx + 2))
+    assert launches == {k: int(k == path) for k in DIFF_HIST_PATHS}
+    want = binning._band_histogram_plain(*args, ty + 2, tx + 2)
+    assert got.dtype == torch.int32 and bool((want != 0).any())
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("form", ["rect", "rowtight"])
+def test_corner_histogram_kernel_matches_plain(dev, form):
+    """K = 1: the rect path's and the row-tight path's corner arrays (as
+    _bin_gaussians_rect and _bin_gaussians_rowtight form them) on the
+    msgs-m360 ×1 grid, bit for bit, on the shared-memory path."""
+    tx, ty = 78, 52
+    rect_min, qs, txlos, ws, live = band_rows(1 << 20, tx, ty, 0.7, seed=7)
+    if form == "rect":
+        drop = torch.full_like(qs[2], ty + 1)
+        corners = (torch.where(live, rect_min[:, 1], drop),
+                   torch.where(live, rect_min[:, 1] + qs[2], drop),
+                   rect_min[:, 0], rect_min[:, 0] + 2)
+        ny, nx = ty + 2, tx + 2
+    else:
+        row = torch.where(ws[1] > 0, rect_min[:, 1], ty)
+        corners = (row, torch.full_like(row, ty + 1), txlos[1].int(),
+                   (txlos[1] + ws[1]).int())
+        ny, nx = ty + 1, tx + 1
+    corners = _to(dev, corners)
+    got, launches = _path_launches(
+        lambda: binning._diff_histogram(*corners, ny, nx))
+    assert launches == {"diff_hist_smem": 1, "diff_hist_global": 0}
+    want = binning._onehot_diff_histogram(*corners, ny, nx)
+    assert bool((want != 0).any()) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("ny,nx,path", [(54, 80, "diff_hist_smem"),
+                                        (257, 257, "diff_hist_global")])
+def test_diff_histogram_kernel_inverted_and_off_grid(dev, ny, nx, path):
+    """Inverted rectangles and corners off the grid, in both forms: every
+    corner the plain scatter keeps, the kernel keeps."""
+    g = torch.Generator().manual_seed(ny)
+    n = 200_000
+    ri = lambda lo, hi: torch.randint(lo, hi, (n,), generator=g,
+                                      dtype=torch.int32)
+    corners = _to(dev, (ri(-5, ny + 5), ri(-5, ny + 5), ri(-5, nx + 5),
+                        ri(-5, nx + 5)))
+    got, launches = _path_launches(
+        lambda: binning._diff_histogram(*corners, ny, nx))
+    assert launches == {k: int(k == path) for k in DIFF_HIST_PATHS}
+    assert torch.equal(got, binning._onehot_diff_histogram(*corners, ny, nx))
+    # Bands: boundaries out of order, lows and widths past either edge.
+    rect_min = torch.stack([ri(0, 1), ri(-3, ny + 3)], 1)
+    qs = tuple(ri(-3, 7) for _ in range(3))
+    txlos = tuple(ri(-6, nx + 6).float() for _ in range(3))
+    ws = tuple(ri(0, 6).float() for _ in range(3))
+    live = torch.rand(n, generator=g) < 0.7
+    args = _to(dev, (rect_min, qs, txlos, ws, live))
+    got, launches = _path_launches(
+        lambda: binning._band_histogram(*args, ny, nx))
+    assert launches == {k: int(k == path) for k in DIFF_HIST_PATHS}
+    want = binning._band_histogram_plain(*args, ny, nx)
+    assert bool((want != 0).any()) and torch.equal(got, want)
+
+
+def test_diff_histogram_kernel_empty_and_refusals(dev):
+    """No rows: a zero grid and no launch. Corner arrays of another dtype
+    or length are refused."""
+    z = torch.zeros(0, dtype=torch.int32, device=dev)
+    got, launches = _path_launches(
+        lambda: binning._diff_histogram(z, z, z, z, 5, 6))
+    assert launches == {k: 0 for k in DIFF_HIST_PATHS}
+    assert got.shape == (5, 6) and not bool(got.any())
+    a = torch.zeros(4, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        binning._diff_histogram(a, a, a.float(), a, 5, 6)
+    with pytest.raises(ValueError):
+        binning._diff_histogram(a, a, a[:3], a, 5, 6)
+
+
+@pytest.mark.parametrize("i,cells", [(0, 54 * 80), (1, 54 * 80), (2, 0),
+                                     (3, 0)])
+def test_diff_hist_builds_fit(dev, i, cells):
+    """No stack frame, and at least 3 CTAs of 512 threads an SM (the
+    shared instances at the msgs-m360 ×1 grid, 17,280 bytes)."""
+    info = _build.kernel_info("msgs_diff_hist_info", i, cells)
+    assert info["stack_bytes"] == 0, info
+    assert info["dynamic_smem"] == 4 * cells, info
+    assert info["ctas_per_sm"] >= 3, info
